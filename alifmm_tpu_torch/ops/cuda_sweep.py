@@ -1,0 +1,204 @@
+"""K1, the sweep kernel on the GPU, and the fixpoint pass loop.
+
+Counterpart of ``alifmm_tpu/ops/pallas_sweep.py``.  ``csrc/sweep.cu`` runs
+one full pass (four directional Gauss-Seidel sweeps) for a batch of
+sources, one CTA per source, and returns each source's pass-to-pass delta
+and scale.  It is compiled with ``nvcc`` for ``sm_90a`` into a library
+with a plain C interface at first use, into ``alifmm_tpu_torch/_build/``,
+and loaded with ``ctypes``.
+
+``sweep_pass`` is the wrapper: for CUDA tensors it launches K1 (and raises
+on any failure), for CPU tensors it runs the plain twin
+(``ops/sweep.gs_pass``).  ``LAUNCHES`` counts kernel launches.
+``solve_fixpoint`` is the two-phase pass loop the solver calls; it reads
+the per-pass delta and scale to the host once per pass.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import typing
+
+import numpy as np
+import torch
+
+from .. import grid as gridlib
+from .. import materials as mat
+from . import sweep
+
+__all__ = ["LAUNCHES", "build", "pack_model", "sweep_pass", "solve_fixpoint"]
+
+LAUNCHES = 0
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_HERE)
+SOURCE = os.path.join(_PKG, "csrc", "sweep.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+_LIB = None
+BUILD_LOG = ""
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: K1 is built from csrc/ with the CUDA "
+                       "toolkit's nvcc")
+
+
+def build(verbose: bool = False):
+    """Compile ``csrc/sweep.cu`` (once per process and source version) and
+    return the loaded library.  ``verbose`` adds ``-Xptxas -v`` and keeps
+    its report in ``BUILD_LOG``."""
+    global _LIB, BUILD_LOG
+    if _LIB is not None:
+        return _LIB
+    with open(SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    so = os.path.join(BUILD_DIR, f"libalifmm_sweep_{digest.hexdigest()[:16]}.so")
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, SOURCE]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_LOG = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("alifmm_sweep_pass_f32", "alifmm_sweep_pass_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, ptr,
+                       ptr, i32, ctypes.c_double, ptr, ptr, ptr, ptr, i32,
+                       i32, i32, ptr]
+        fn.restype = i32
+    _LIB = lib
+    return lib
+
+
+class Packed(typing.NamedTuple):
+    """A model's material planes and phase table in the kernel's layout."""
+
+    planes: torch.Tensor      # (Bm, 12, Z, X): veln, velpn, vel_map, stif x5, fbs x4
+    phase_tab: torch.Tensor   # (A, M) contiguous
+    col_mode: torch.Tensor    # (M,) int32
+    col_const: torch.Tensor   # (M,)
+    has_stif: bool
+    dnx: float
+
+
+def pack_model(model: gridlib.Model) -> Packed:
+    """Stack a (shared or per-source batched) model into kernel planes."""
+    dt = model.dtype
+    stif = model.stif
+    cols = [model.veln, model.velpn.to(dt), model.vel_map]
+    cols += [stif[..., c] for c in range(5)]
+    cols += [model.fallback_slowness[..., f, :, :] for f in range(4)]
+    planes = torch.stack(cols, dim=-3)
+    if planes.dim() == 3:
+        planes = planes[None]
+    mode, const = mat.column_modes(model.phase_info, model.phase_tab.shape[1])
+    dev = model.device
+    return Packed(
+        planes=planes.contiguous(),
+        phase_tab=model.phase_tab.contiguous(),
+        col_mode=torch.from_numpy(mode).to(dev),
+        col_const=torch.from_numpy(const).to(dt).to(dev),
+        has_stif=bool(model.has_stif),
+        dnx=float(model.dnx),
+    )
+
+
+def _launch(tt, fixed, packed, replace, active):
+    """Launch K1 for (B, Z, X) CUDA fields; returns (new, delta, scale)."""
+    global LAUNCHES
+    if tt.dim() != 3 or fixed.shape != tt.shape:
+        raise ValueError(f"K1 takes (B, Z, X) fields and a fixed mask of the "
+                         f"same shape, not {tuple(tt.shape)} and "
+                         f"{tuple(fixed.shape)}")
+    B, Z, X = tt.shape
+    dt = tt.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"K1 takes float32 or float64 fields, not {dt}")
+    planes = packed.planes
+    if planes.shape[-2:] != (Z, X) or planes.shape[0] not in (1, B):
+        raise ValueError(f"material planes {tuple(planes.shape)} do not fit "
+                         f"fields {tuple(tt.shape)}")
+    for name, t in (("fixed", fixed), ("planes", planes),
+                    ("phase_tab", packed.phase_tab)):
+        if t.device != tt.device:
+            raise ValueError(f"{name} is on {t.device}, fields on {tt.device}")
+    if planes.dtype != dt or packed.phase_tab.dtype != dt:
+        raise TypeError("material planes and fields differ in dtype")
+    tt = tt.contiguous()
+    fixed = fixed.to(torch.bool).contiguous()
+    out = torch.empty_like(tt)
+    delta = torch.empty(B, dtype=dt, device=tt.device)
+    scale = torch.empty(B, dtype=dt, device=tt.device)
+    rep = torch.as_tensor(np.asarray(replace, np.int32)).to(tt.device)
+    act = torch.as_tensor(np.asarray(active, np.int32)).to(tt.device)
+    bstride = 0 if planes.shape[0] == 1 else planes[0].numel()
+    lib = build()
+    fn = lib.alifmm_sweep_pass_f32 if dt == torch.float32 else lib.alifmm_sweep_pass_f64
+    stream = torch.cuda.current_stream(tt.device).cuda_stream
+    err = fn(tt.data_ptr(), out.data_ptr(), fixed.data_ptr(),
+             planes.data_ptr(), bstride, packed.phase_tab.data_ptr(),
+             packed.phase_tab.shape[1], packed.col_mode.data_ptr(),
+             packed.col_const.data_ptr(), int(packed.has_stif), packed.dnx,
+             rep.data_ptr(), act.data_ptr(), delta.data_ptr(),
+             scale.data_ptr(), B, Z, X, stream)
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return out, delta, scale
+
+
+def sweep_pass(tt, model: gridlib.Model, fixed, replace, active=None,
+               packed: Packed | None = None):
+    """One sweep pass over (B, Z, X) fields: K1 on a CUDA tensor, the plain
+    twin on a CPU tensor.  ``replace``/``active``: per-source flags
+    (inactive sources keep their field).  Returns (new, delta, scale) with
+    per-source delta and scale as host arrays."""
+    B = tt.shape[0]
+    replace = np.array(np.broadcast_to(np.asarray(replace, bool), (B,)))
+    active = (np.ones(B, bool) if active is None
+              else np.array(np.broadcast_to(np.asarray(active, bool), (B,))))
+    if not tt.is_cuda:
+        return sweep.plain_pass(tt, model, fixed, replace, active)
+    packed = pack_model(model) if packed is None else packed
+    out, delta, scale = _launch(tt, fixed, packed, replace, active)
+    return out, delta.cpu().numpy(), scale.cpu().numpy()
+
+
+def solve_fixpoint(tt0, model: gridlib.Model, fixed, rel_tol: float = 1e-6,
+                   max_passes: int = 50, min_passes: int = 2,
+                   polish_passes: int = 5, max_polish_passes: int | None = None,
+                   per_source: bool = False, inner: int = 0,
+                   use_ali: bool = True, phase1_use_ali: bool | None = None,
+                   polish_use_fd: bool = True):
+    """Two-phase fixpoint solve of (B, Z, X) fields through ``sweep_pass``.
+
+    ``per_source=False``: one joint stop test over the batch (the final
+    stage).  ``per_source=True``: each source has its own phase, pass count
+    and stop test, and ``model`` may carry per-source material fields (the
+    patch stages).  Returns (field, SolveInfo)."""
+    sweep.check_form(inner, use_ali, phase1_use_ali, polish_use_fd)
+    packed = pack_model(model) if tt0.is_cuda else None
+
+    def pass_fn(tt, rep, act):
+        return sweep_pass(tt, model, fixed, rep, act, packed=packed)
+
+    return sweep.two_phase(tt0, pass_fn, per_source, rel_tol, max_passes,
+                           min_passes, polish_passes, max_polish_passes)

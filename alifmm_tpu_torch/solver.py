@@ -1,0 +1,294 @@
+"""Per-source travel-time fields with telescoped source refinement.
+
+Counterpart of ``alifmm_tpu/solver.py`` (the ``subgrid_size == 1`` path).
+A small window around each source is solved on a refined grid (27x, 9x,
+3x), each stage seeding the next by injecting every third point; the
+innermost window is seeded analytically with straight rays through the
+source cell; the final stage solves the whole model grid.  Every stage is
+a two-phase fixpoint of line sweeps (``ops/cuda_sweep.solve_fixpoint``:
+the sweep kernel K1 on the GPU, its plain twin on the CPU).
+
+Where the JAX package vmaps over sources, this module carries an explicit
+source batch: patch models hold (B, Zp, Xp) material fields and the patch
+fixpoints stop per source; the final stage solves the (B, Z, X) batch
+with one joint stop test, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+
+import torch
+
+from . import grid as gridlib
+from . import materials as mats
+from .ops import cuda_sweep
+from .ops.stencils import INF
+
+__all__ = ["SolveConfig", "solve_ttf", "coarse_stages"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveConfig:
+    """Solver iteration budget (fields and defaults of the JAX package's
+    SolveConfig that the main path reads).  ``sweep_block`` and
+    ``patch_block`` are XLA dispatch knobs and are ignored; ``sweep_inner``
+    / ``patch_inner`` other than 0, ``use_ali=False``, a differing
+    ``phase1_use_ali`` and ``final_polish_fd=False`` select sweep forms
+    this port leaves out and raise NotImplementedError when solving."""
+
+    rel_tol: float = 1e-3
+    patch_max_passes: int = 10
+    final_max_passes: int = 16
+    polish_passes: int = 5
+    final_rel_tol: float | None = None
+    final_polish_passes: int | None = None
+    final_max_polish: int | None = None
+    stage3_half: int | None = None
+    sweep_block: int = 8
+    patch_block: int = 4
+    sweep_inner: int = 0
+    patch_inner: int = 0
+    use_ali: bool = True
+    phase1_use_ali: bool | None = None
+    final_polish_fd: bool = True
+
+
+def _window_origin(center, half, n):
+    """Clamped origin of a (2*half+1)-wide window around ``center``."""
+    return torch.clamp(center - half, 0, max(n - 1 - 2 * half, 0))
+
+
+def _slice_model(model: gridlib.Model, bz, bx, hz, hx, factor):
+    """Per-source (2hz+1, 2hx+1) windows of the model at origins (bz, bx),
+    NN-refined by ``factor`` with the reference dtype quirks (veln through
+    int32, vel_map through float32).  Returns a batched patch Model."""
+    dtype = model.dtype
+    wz, wx = 2 * hz + 1, 2 * hx + 1
+    iz = gridlib._nearest_index(wz, factor, model.device)
+    ix = gridlib._nearest_index(wx, factor, model.device)
+    rows = (bz[:, None] + iz[None, :])[:, :, None].long()
+    cols = (bx[:, None] + ix[None, :])[:, None, :].long()
+    veln_f = model.veln[rows, cols].to(torch.int32).to(dtype)
+    velpn_f = model.velpn[rows, cols]
+    vel_map_f = model.vel_map[rows, cols].to(torch.float32).to(dtype)
+    stif_f = model.stif[rows, cols]
+    fb = gridlib._fallback_slowness_planes(
+        veln_f, velpn_f, vel_map_f, stif_f, model.group_tab, model.has_stif)
+    return gridlib.Model(
+        veln=veln_f, velpn=velpn_f, vel_map=vel_map_f, stif=stif_f,
+        group_tab=model.group_tab, phase_tab=model.phase_tab,
+        fallback_slowness=fb, dnx=model.dnx / factor, ray_curves=None,
+        ray_curve_idx=None, ray_skew=None, has_stif=model.has_stif,
+        phase_info=model.phase_info, group_info=model.group_info,
+    )
+
+
+def _analytic_seed(patch: gridlib.Model, base: gridlib.Model, isz, isx,
+                   src_z, src_x, side, seed_sign):
+    """Straight-ray times through the homogeneous source cell on each
+    source's innermost patch.  ``(src_z, src_x)``: (B,) source positions on
+    the patch grid; materials come from the base-grid source cell
+    ``(isz, isx)``.  Returns (tt, fixed), both (B, Zp, Xp)."""
+    dtype = base.dtype
+    Z, X = patch.shape
+    dev = base.device
+    dz = (torch.arange(Z, dtype=dtype, device=dev)[None, :, None]
+          - src_z.to(dtype)[:, None, None])
+    dx = (torch.arange(X, dtype=dtype, device=dev)[None, None, :]
+          - src_x.to(dtype)[:, None, None])
+    dz, dx = torch.broadcast_tensors(dz, dx)
+    in_seed = (torch.abs(dz) <= side) & (torch.abs(dx) <= side)
+
+    dx_zero = dx == 0
+    angle = torch.where(
+        dx_zero, 90.0,
+        torch.atan(dz / torch.where(dx_zero, 1.0, dx)) * (180.0 / math.pi))
+    isz, isx = isz.long(), isx.long()
+    v_src = base.veln[isz, isx][:, None, None]
+    p_src = base.velpn[isz, isx][:, None, None]
+    m_src = base.vel_map[isz, isx][:, None, None]
+    s_src = base.stif[isz, isx][:, None, None, :]
+    eff = torch.remainder(v_src + seed_sign * angle, 180.0)
+    v_tab = mats.interp_table(patch.group_tab, eff, p_src.expand(dz.shape),
+                              m_src.expand(dz.shape), info=patch.group_info)
+    if patch.has_stif:
+        v_chr = mats.group_velocity_christoffel(
+            eff, *[s_src[..., c] for c in range(5)], m_src)
+        vel = torch.where(p_src != 0, v_tab, v_chr)
+    else:
+        vel = v_tab
+    tt = patch.dnx * torch.sqrt(dz * dz + dx * dx) / vel
+    tt = torch.where(in_seed, tt, INF)
+    return tt, in_seed
+
+
+def _edge_time(tt, bz, bx, prev_factor, base_shape):
+    """Per-source first-arrival time on the real (not model-boundary)
+    borders of the patch fields ``tt`` (B, Zp, Xp) at origins (bz, bx)."""
+    Zp, Xp = tt.shape[-2], tt.shape[-1]
+    Z, X = base_shape
+    wz = (Zp - 1) // prev_factor
+    wx = (Xp - 1) // prev_factor
+    big = torch.where(tt < INF * 0.5, tt, INF)
+    inf = torch.full_like(big[:, 0, 0], INF)
+    t_top = torch.where(bz == 0, inf, big[:, 0, :].amin(-1))
+    t_bot = torch.where(bz + wz >= Z - 1, inf, big[:, -1, :].amin(-1))
+    t_left = torch.where(bx == 0, inf, big[:, :, 0].amin(-1))
+    t_right = torch.where(bx + wx >= X - 1, inf, big[:, :, -1].amin(-1))
+    return torch.minimum(torch.minimum(t_top, t_bot),
+                         torch.minimum(t_left, t_right))
+
+
+def _inject(prev_tt, prev_bz, prev_bx, prev_factor, cur_shape, cur_bz, cur_bx,
+            cur_factor, base_shape):
+    """Inject every third point of the previous stage's fields into the
+    current grids; values at or below the first arrival on the previous
+    patch's real borders are frozen.  Returns (tt, fixed), (B, *cur_shape)."""
+    B = prev_tt.shape[0]
+    dev = prev_tt.device
+    sub = prev_tt[:, ::3, ::3]
+    t_edge = _edge_time(prev_tt, prev_bz, prev_bx, prev_factor, base_shape)
+    Sz, Sx = sub.shape[-2], sub.shape[-1]
+    Zc, Xc = cur_shape
+    # dynamic_update_slice semantics: the start is clamped so the update fits
+    off_z = torch.clamp((prev_bz - cur_bz) * cur_factor, 0, Zc - Sz).long()
+    off_x = torch.clamp((prev_bx - cur_bx) * cur_factor, 0, Xc - Sx).long()
+    rows = (off_z[:, None] + torch.arange(Sz, device=dev)[None, :])[:, :, None]
+    cols = (off_x[:, None] + torch.arange(Sx, device=dev)[None, :])[:, None, :]
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    tt = torch.full((B, Zc, Xc), INF, dtype=prev_tt.dtype, device=dev)
+    tt[bidx, rows, cols] = sub
+    fixed = torch.zeros((B, Zc, Xc), dtype=torch.bool, device=dev)
+    fixed[bidx, rows, cols] = sub <= t_edge[:, None, None]
+    return tt, fixed
+
+
+# Coarse-path constants: windows of +-2/+-6/+-13 cells at 27x/9x/3x; the
+# analytic seed out to +-13 fine points; effective seed angle veln - angle.
+_COARSE_STAGES = ((2, 27), (6, 9), (13, 3))
+_COARSE_SEED_SIDE = 13
+_COARSE_SEED_SIGN = -1.0
+
+
+def coarse_stages(cfg: SolveConfig):
+    """The coarse-path stage schedule, with cfg.stage3_half applied."""
+    if cfg.stage3_half is None:
+        return _COARSE_STAGES
+    return _COARSE_STAGES[:-1] + ((cfg.stage3_half, 3),)
+
+
+def _source_cells(model, scx, scz):
+    isx = torch.round(scx / model.dnx).to(torch.int32)
+    isz = torch.round(scz / model.dnx).to(torch.int32)
+    return isz, isx
+
+
+def _patch_solve(tt, patches, fixed, cfg):
+    """Per-source fixpoint of a batch of patches."""
+    return cuda_sweep.solve_fixpoint(
+        tt, patches, fixed, rel_tol=cfg.rel_tol,
+        max_passes=cfg.patch_max_passes, polish_passes=cfg.polish_passes,
+        per_source=True, inner=cfg.patch_inner, use_ali=cfg.use_ali,
+        phase1_use_ali=cfg.phase1_use_ali,
+    )
+
+
+def _window(model, isz, isx, half):
+    Z, X = model.shape
+    hz = min(half, (Z - 1) // 2)
+    hx = min(half, (X - 1) // 2)
+    return hz, hx, _window_origin(isz, hz, Z), _window_origin(isx, hx, X)
+
+
+def _stage_first(model, scx, scz, half, factor, seed_side, seed_sign, cfg):
+    """Innermost patches: analytic seed, then the patch fixpoint.  Returns
+    (tt, bz, bx, per-source SolveInfo)."""
+    isz, isx = _source_cells(model, scx, scz)
+    hz, hx, bz, bx = _window(model, isz, isx, half)
+    patches = _slice_model(model, bz, bx, hz, hx, factor)
+    tt, fixed = _analytic_seed(patches, model, isz, isx, (isz - bz) * factor,
+                               (isx - bx) * factor, seed_side, seed_sign)
+    tt, info = _patch_solve(tt, patches, fixed, cfg)
+    return tt, bz, bx, info
+
+
+def _stage_next(model, scx, scz, prev_tt, prev_bz, prev_bx, half, factor, cfg):
+    """Next patches, seeded by injection from the previous stage."""
+    isz, isx = _source_cells(model, scx, scz)
+    hz, hx, bz, bx = _window(model, isz, isx, half)
+    patches = _slice_model(model, bz, bx, hz, hx, factor)
+    tt, fixed = _inject(prev_tt, prev_bz, prev_bx, 3 * factor, patches.shape,
+                        bz, bx, factor, model.shape)
+    tt, info = _patch_solve(tt, patches, fixed, cfg)
+    return tt, bz, bx, info
+
+
+def _stage_final(model, prev_tt, prev_bz, prev_bx, cfg):
+    """Full-grid stage: inject, then one joint fixpoint over all sources."""
+    B = prev_tt.shape[0]
+    zero = torch.zeros(B, dtype=prev_bz.dtype, device=prev_bz.device)
+    tt, fixed = _inject(prev_tt, prev_bz, prev_bx, 3, model.shape, zero, zero,
+                        1, model.shape)
+    f_tol = cfg.rel_tol if cfg.final_rel_tol is None else cfg.final_rel_tol
+    f_pol = (cfg.polish_passes if cfg.final_polish_passes is None
+             else cfg.final_polish_passes)
+    return cuda_sweep.solve_fixpoint(
+        tt, model, fixed, rel_tol=f_tol, max_passes=cfg.final_max_passes,
+        polish_passes=f_pol, max_polish_passes=cfg.final_max_polish,
+        inner=cfg.sweep_inner, use_ali=cfg.use_ali,
+        phase1_use_ali=cfg.phase1_use_ali, polish_use_fd=cfg.final_polish_fd,
+    )
+
+
+def _staged_solve(base, scx, scz, stages, seed_side, seed_sign, cfg,
+                  progress=None, return_info=False):
+    """Telescoped solve of all sources: ``stages`` are (half, factor) pairs,
+    innermost first, then the final full-grid stage."""
+    total = len(stages) + 1
+    scx = torch.as_tensor(scx, device=base.device).to(base.dtype)
+    scz = torch.as_tensor(scz, device=base.device).to(base.dtype)
+
+    def note(k, name, t0):
+        if progress is None:
+            return
+        if base.device.type == "cuda":
+            torch.cuda.synchronize(base.device)
+        progress(stage=k, total=total, name=name,
+                 seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    (h0, f0) = stages[0]
+    tt, bz, bx, _ = _stage_first(base, scx, scz, h0, f0, seed_side,
+                                 float(seed_sign), cfg)
+    note(1, f"patch {f0}x (half={h0})", t0)
+    for k, (h, f) in enumerate(stages[1:], start=2):
+        t0 = time.perf_counter()
+        tt, bz, bx, _ = _stage_next(base, scx, scz, tt, bz, bx, h, f, cfg)
+        note(k, f"patch {f}x (half={h})", t0)
+    t0 = time.perf_counter()
+    out, info = _stage_final(base, tt, bz, bx, cfg)
+    note(total, "final full-grid", t0)
+    if return_info:
+        return out, info
+    return out
+
+
+def solve_ttf(model: gridlib.Model, scx, scz, subgrid_size: int = 1,
+              cfg: SolveConfig = SolveConfig(), progress=None,
+              return_info=False):
+    """Travel-time fields (n_src, Z, X) for sources at coordinates
+    (scx, scz) on the model grid.
+
+    ``progress(stage=, total=, name=, seconds=)`` is called after each
+    stage, with the device synchronised first.  ``return_info=True`` also
+    returns the final stage's SolveInfo (phase-1 passes, converged).
+    ``subgrid_size > 1`` (the refined-grid path) is not ported yet.
+    """
+    if subgrid_size != 1:
+        raise NotImplementedError("solve_ttf with subgrid_size > 1")
+    return _staged_solve(model, scx, scz, coarse_stages(cfg),
+                         _COARSE_SEED_SIDE, _COARSE_SEED_SIGN, cfg,
+                         progress=progress, return_info=return_info)

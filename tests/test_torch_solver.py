@@ -1,0 +1,94 @@
+"""PyTorch port, solver: the telescoped staged solve against the JAX
+package (float64) on the 48 x 56 problem of __graft_entry__, three sources
+(two on an edge), small budgets so the per-line CPU twin stays cheap."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import __graft_entry__ as graft
+from alifmm_tpu import solver as jsolver
+from alifmm_tpu_torch import grid as tgrid
+from alifmm_tpu_torch import solver as tsolver
+from alifmm_tpu_torch.ops.stencils import INF
+
+RTOL = 1e-9  # same float64 operations: ulps, no tie flips
+STAGES = ((1, 9), (2, 3))
+SEED_SIDE = 4
+BUDGET = dict(patch_max_passes=3, final_max_passes=6, polish_passes=2)
+# sweep_block / patch_block only change XLA dispatch; 1 keeps the JAX
+# compile small
+JCFG = jsolver.SolveConfig(**BUDGET, sweep_block=1, patch_block=1)
+TCFG = tsolver.SolveConfig(**BUDGET)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    jm, dnx, Z, X = graft._small_problem(dtype=np.float64)
+    fields = {n: (None if getattr(jm, n) is None else np.asarray(getattr(jm, n)))
+              for n in tgrid.TENSOR_FIELDS}
+    tm = tgrid.model_from_numpy(fields, jm.has_stif, jm.phase_info,
+                                jm.group_info, jm.ray_info,
+                                dtype=torch.float64)
+    # top edge, interior, left edge
+    scx = dnx * np.array([10.0, 30.0, 0.0])
+    scz = dnx * np.array([0.0, 20.0, 40.0])
+    return jm, tm, scx, scz
+
+
+def _assert_fields(got, want):
+    np.testing.assert_array_equal(got >= INF * 0.5, want >= INF * 0.5)
+    known = want < INF * 0.5
+    rel = np.abs(got - want)[known] / np.maximum(want[known], 1e-12)
+    assert rel.max() < RTOL, rel.max()
+
+
+def test_staged_solve_matches_jax(problem):
+    jm, tm, scx, scz = problem
+    want, winfo = jsolver._staged_solve(jm, jnp.asarray(scx), jnp.asarray(scz),
+                                        STAGES, SEED_SIDE, -1.0, JCFG,
+                                        return_info=True)
+    names = []
+    got, info = tsolver._staged_solve(
+        tm, torch.from_numpy(scx), torch.from_numpy(scz), STAGES, SEED_SIDE,
+        -1.0, TCFG, return_info=True,
+        progress=lambda stage, total, name, seconds: names.append(name))
+    _assert_fields(got.numpy(), np.asarray(want))
+    assert got.shape == (3,) + jm.shape
+    assert info.passes == int(winfo.passes)
+    assert info.converged == bool(winfo.converged)
+    assert len(names) == len(STAGES) + 1
+
+
+def test_patch_stages_per_source_convergence(problem):
+    """The patch stages stop per source (the JAX package vmaps them): here
+    the sources of stage 2 converge after different pass counts, and every
+    source's patch still matches JAX."""
+    jm, tm, scx, scz = problem
+    jx, jz = jnp.asarray(scx), jnp.asarray(scz)
+    tx, tz = torch.from_numpy(scx), torch.from_numpy(scz)
+    (h0, f0), (h1, f1) = STAGES
+    w1, wbz, wbx = jsolver._stage_first(jm, jx, jz, h0, f0, SEED_SIDE, -1.0,
+                                        JCFG, use_pallas=False)
+    g1, bz, bx, info1 = tsolver._stage_first(tm, tx, tz, h0, f0, SEED_SIDE,
+                                             -1.0, TCFG)
+    _assert_fields(g1.numpy(), np.asarray(w1))
+    np.testing.assert_array_equal(bz.numpy(), np.asarray(wbz))
+    np.testing.assert_array_equal(bx.numpy(), np.asarray(wbx))
+    w2, _, _ = jsolver._stage_next(jm, jx, jz, w1, wbz, wbx, h1, f1, JCFG,
+                                   use_pallas=False)
+    g2, _, _, info2 = tsolver._stage_next(tm, tx, tz, g1, bz, bx, h1, f1, TCFG)
+    _assert_fields(g2.numpy(), np.asarray(w2))
+    assert len(set(info2.passes.tolist())) > 1, info2
+
+
+def test_unported_paths_raise(problem):
+    jm, tm, scx, scz = problem
+    with pytest.raises(NotImplementedError):
+        tsolver.solve_ttf(tm, torch.from_numpy(scx), torch.from_numpy(scz), 3)
+    with pytest.raises(NotImplementedError):
+        tsolver._stage_first(tm, torch.from_numpy(scx), torch.from_numpy(scz),
+                             1, 9, SEED_SIDE, -1.0,
+                             tsolver.SolveConfig(patch_inner=2))

@@ -1,0 +1,130 @@
+"""PyTorch port, sweeps: the plain twin of the sweep kernel (ops/sweep.py)
+against the JAX XLA sweep (float64) and against the Pallas sweep kernel
+run in interpret mode (float32), on the 20 x 26 model of
+tests/test_pallas_sweep.py with three seeded sources."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from alifmm_tpu import grid as jgrid
+from alifmm_tpu.ops import pallas_sweep
+from alifmm_tpu.ops import stencils as jst
+from alifmm_tpu.ops import sweep as jsweep
+from alifmm_tpu_torch import grid as tgrid
+from alifmm_tpu_torch.ops import cuda_sweep
+from alifmm_tpu_torch.ops import sweep as tsweep
+
+RTOL_F64 = 1e-9   # same operations in float64: ulps, no tie flips
+RTOL_PALLAS = 1e-4  # the kernel's folded-coefficient velocity and
+                    # polynomial arctan differ by up to 2e-5 in float32
+
+
+def _jax_model(dtype):
+    Z, X = 20, 26
+    rng = np.random.default_rng(3)
+    veln = np.round(rng.uniform(0, 180, (Z, X)))
+    velpn = np.ones((Z, X), dtype=int)
+    velpn[5:15, 7:19] = 0
+    vel_map = np.where(velpn == 1, 5790.0, 1.0).astype(np.float32)
+    stif = np.zeros((Z, X, 5), dtype=np.int64)
+    stif[:, :] = [263000, 148000, 216000, 129000, 8100]
+    return jgrid.make_model(veln, velpn, vel_map, stif, None, None, 2e-4,
+                            dtype=dtype)
+
+
+def _torch_model(jm, dtype):
+    fields = {n: (None if getattr(jm, n) is None else np.asarray(getattr(jm, n)))
+              for n in tgrid.TENSOR_FIELDS}
+    return tgrid.model_from_numpy(fields, jm.has_stif, jm.phase_info,
+                                  jm.group_info, jm.ray_info, dtype=dtype)
+
+
+def _seeded(shape, dtype, B=3):
+    Z, X = shape
+    tt0 = np.full((B, Z, X), jst.INF, dtype)
+    fixed = np.zeros((B, Z, X), bool)
+    for b in range(B):
+        sz, sx = 9 + b, 13 - 2 * b
+        tt0[b, sz, sx] = 0.0
+        fixed[b, sz, sx] = True
+        tt0[b, sz, sx + 1] = 4e-8
+        fixed[b, sz, sx + 1] = True
+    return tt0, fixed
+
+
+@pytest.fixture(scope="module")
+def f64():
+    jm = _jax_model(jnp.float64)
+    tm = _torch_model(jm, torch.float64)
+    tt0, fixed = _seeded(jm.shape, np.float64)
+    return jm, tm, tt0, fixed
+
+
+def _assert_close(got, want, fixed, rtol):
+    mask = ~fixed
+    np.testing.assert_array_equal(got >= jst.INF * 0.5, want >= jst.INF * 0.5)
+    known = mask & (want < jst.INF * 0.5)
+    rel = np.abs(got - want)[known] / np.maximum(want[known], 1e-12)
+    assert rel.max() < rtol, rel.max()
+
+
+def test_gs_pass_min_and_replace_match_jax(f64):
+    jm, tm, tt0, fixed = f64
+    jpass = jax.jit(jsweep.gs_pass)
+    # phase-1 pass from the seeded field, then a replace pass on a field
+    # two min passes in (where the replace rule actually changes values)
+    want1 = np.asarray(jpass(jnp.asarray(tt0), jm, jnp.asarray(fixed), False))
+    got1 = tsweep.gs_pass(torch.from_numpy(tt0), tm, torch.from_numpy(fixed),
+                          replace=False).numpy()
+    _assert_close(got1, want1, fixed, RTOL_F64)
+    mid = np.asarray(jpass(jnp.asarray(want1), jm, jnp.asarray(fixed), False))
+    want2 = np.asarray(jpass(jnp.asarray(mid), jm, jnp.asarray(fixed), True))
+    got2 = tsweep.gs_pass(torch.from_numpy(mid.copy()), tm, torch.from_numpy(fixed),
+                          replace=True).numpy()
+    _assert_close(got2, want2, fixed, RTOL_F64)
+    assert np.any(want2 != mid)
+
+
+@pytest.mark.parametrize("solve", ["plain", "pass_loop"])
+def test_solve_fixpoint_matches_jax(f64, solve):
+    """Joint two-phase fixpoint: the plain solve_fixpoint, and the pass
+    loop the solver calls (which takes the plain twin on CPU tensors)."""
+    jm, tm, tt0, fixed = f64
+    kw = dict(rel_tol=1e-4, max_passes=8, polish_passes=3)
+    want, winfo = jsweep.solve_fixpoint(jnp.asarray(tt0), jm,
+                                        jnp.asarray(fixed), **kw)
+    fn = tsweep.solve_fixpoint if solve == "plain" else cuda_sweep.solve_fixpoint
+    got, info = fn(torch.from_numpy(tt0), tm, torch.from_numpy(fixed), **kw)
+    _assert_close(got.numpy(), np.asarray(want), fixed, RTOL_F64)
+    assert info.passes == int(winfo.passes)
+    assert info.converged == bool(winfo.converged)
+
+
+def test_unported_forms_raise(f64):
+    jm, tm, tt0, fixed = f64
+    t, f = torch.from_numpy(tt0), torch.from_numpy(fixed)
+    for kw in (dict(inner=2), dict(phase1_use_ali=False),
+               dict(polish_use_fd=False), dict(use_ali=False)):
+        with pytest.raises(NotImplementedError):
+            tsweep.solve_fixpoint(t, tm, f, **kw)
+
+
+def test_plain_twin_matches_pallas_kernel(monkeypatch):
+    """As tests/test_pallas_sweep.py runs the Pallas kernel (interpret
+    mode, float32), against the port's plain twin on the same model."""
+    monkeypatch.setattr(pallas_sweep, "INTERPRET", True)
+    jm = _jax_model(jnp.float32)
+    tm = _torch_model(jm, torch.float32)
+    tt0, fixed = _seeded(jm.shape, np.float32)
+    want, _ = pallas_sweep.solve_fixpoint_pallas(
+        jnp.asarray(tt0), jm, jnp.asarray(fixed), rel_tol=1e-4, max_passes=8,
+        polish_passes=3, batch_chunk=2,
+    )
+    got, _ = tsweep.solve_fixpoint(torch.from_numpy(tt0), tm,
+                                   torch.from_numpy(fixed), rel_tol=1e-4,
+                                   max_passes=8, polish_passes=3)
+    _assert_close(got.numpy(), np.asarray(want), fixed, RTOL_PALLAS)
