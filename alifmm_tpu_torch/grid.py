@@ -19,7 +19,8 @@ import torch
 
 from . import materials as mat
 
-__all__ = ["Model", "make_model", "model_from_numpy", "refine_nearest",
+__all__ = ["Model", "make_model", "model_from_numpy", "resolve_device",
+           "refine_nearest",
            "refine_nearest_3d", "phase_velocity_at", "group_velocity_at"]
 
 # Tensor fields of Model, in declaration order.
@@ -272,13 +273,28 @@ def _ray_curve_tables(velpn_np, stif_np, group_tab_np, phase_tab_np,
     return group, skew, idx
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a model is built on: ``None`` means the CUDA card, and a
+    host without one raises rather than building on the CPU.  The CPU is
+    used only when the caller asks for it (``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: models are built on the card by default; pass "
+            "device='cpu' to build on the CPU")
+    return torch.device("cuda")
+
+
 def model_from_numpy(fields: dict, has_stif, phase_info=None, group_info=None,
-                     ray_info=None, device="cpu", dtype=torch.float32,
+                     ray_info=None, device=None, dtype=torch.float32,
                      skew_info=None) -> Model:
     """Model from a dict of host arrays keyed by field name (missing or None
     ray fields stay None).  Float fields are cast to ``dtype``; ``velpn``
     and ``ray_curve_idx`` become int32.  Carrying a JAX ``Model`` across
-    field by field gives both packages the same state."""
+    field by field gives both packages the same state.  ``device``: see
+    ``resolve_device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     kw = {}
     for name in TENSOR_FIELDS:
         a = fields.get(name)
@@ -295,9 +311,11 @@ def model_from_numpy(fields: dict, has_stif, phase_info=None, group_info=None,
 
 def make_model(veln, velpn, vel_map=None, stif_den=None, group_tab=None,
                phase_tab=None, dnx=1e-3, dtype=torch.float32,
-               device="cpu") -> Model:
+               device=None) -> Model:
     """Assemble a Model from host arrays, with the fallback-slowness planes
-    and ray curve tables precomputed on the host in numpy."""
+    and ray curve tables precomputed on the host in numpy.  ``device``: the
+    card by default, ``"cpu"`` on request (see ``resolve_device``)."""
+    device = resolve_device(device)
     npdt = torch.empty((), dtype=dtype).numpy().dtype
     veln_np = np.asarray(veln).astype(npdt)
     velpn_np = np.asarray(velpn).astype(np.int32)

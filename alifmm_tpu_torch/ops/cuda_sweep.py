@@ -2,8 +2,9 @@
 
 Counterpart of ``alifmm_tpu/ops/pallas_sweep.py``.  ``csrc/sweep.cu`` runs
 one full pass (four directional Gauss-Seidel sweeps) for a batch of
-sources, one CTA per source, and returns each source's pass-to-pass delta
-and scale.  It is compiled with ``nvcc`` for ``sm_90a`` into a library
+sources, a cluster of C CTAs per source with G lanes per point
+(``launch_config``), and returns each source's pass-to-pass delta and
+scale.  It is compiled with ``nvcc`` for ``sm_90a`` into a library
 with a plain C interface at first use, into ``alifmm_tpu_torch/_build/``,
 and loaded with ``ctypes``.
 
@@ -30,7 +31,8 @@ from .. import grid as gridlib
 from .. import materials as mat
 from . import sweep
 
-__all__ = ["LAUNCHES", "build", "pack_model", "sweep_pass", "solve_fixpoint"]
+__all__ = ["LAUNCHES", "build", "launch_config", "pack_model", "sweep_pass",
+           "solve_fixpoint"]
 
 LAUNCHES = 0
 
@@ -42,6 +44,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 _LIB = None
 BUILD_LOG = ""
+# Launch shapes K1 is built for (csrc/sweep.cu): clusters of up to 8 CTAs
+# per source, 4 or 8 lanes per point, width tiles of up to 1,020 points.
+CLUSTER_SIZES = (8, 4, 2, 1)
+LANE_COUNTS = (4, 8)
+MIN_TILE = 8
+MAX_TILE = 1020
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc():
@@ -80,9 +92,9 @@ def build(verbose: bool = False):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("alifmm_sweep_pass_f32", "alifmm_sweep_pass_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, ptr,
-                       ptr, i32, ctypes.c_double, ptr, ptr, ptr, ptr, i32,
-                       i32, i32, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr,
+                       i32, ptr, ptr, i32, ctypes.c_double, ptr, ptr, ptr,
+                       ptr, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
     _LIB = lib
     return lib
@@ -92,6 +104,7 @@ class Packed(typing.NamedTuple):
     """A model's material planes and phase table in the kernel's layout."""
 
     planes: torch.Tensor      # (Bm, 12, Z, X): veln, velpn, vel_map, stif x5, fbs x4
+    planes_t: torch.Tensor    # (Bm, 12, X, Z): the same, for the x-sweeps
     phase_tab: torch.Tensor   # (A, M) contiguous
     col_mode: torch.Tensor    # (M,) int32
     col_const: torch.Tensor   # (M,)
@@ -113,6 +126,7 @@ def pack_model(model: gridlib.Model) -> Packed:
     dev = model.device
     return Packed(
         planes=planes.contiguous(),
+        planes_t=planes.transpose(-1, -2).contiguous(),
         phase_tab=model.phase_tab.contiguous(),
         col_mode=torch.from_numpy(mode).to(dev),
         col_const=torch.from_numpy(const).to(dt).to(dev),
@@ -121,8 +135,40 @@ def pack_model(model: gridlib.Model) -> Packed:
     )
 
 
-def _launch(tt, fixed, packed, replace, active):
-    """Launch K1 for (B, Z, X) CUDA fields; returns (new, delta, scale)."""
+def launch_config(B: int, Z: int, X: int, sms: int,
+                  cluster: int | None = None, lanes: int | None = None):
+    """K1's (cluster size C, lanes per point G) for B sources of (Z, X).
+
+    A line step gives each SM about B * max(Z, X) / sms points.  Up to 32
+    points per SM the step is latency-bound and G = 8 shortens it; above
+    that it is bound by the SM's issue rate, and G = 4 (64 registers, two
+    CTAs per SM) does less redundant work.  C is the largest of 8, 4, 2, 1
+    that keeps all B x C CTAs resident at two per SM and width tiles of at
+    least ``MIN_TILE`` points: C = 8 for the 31 weld sources at 424 x 500,
+    109 x 109 and 79 x 79."""
+    width = max(Z, X)
+    if lanes is None:
+        lanes = 8 if B * width <= 32 * sms else 4
+    if cluster is None:
+        cluster = 1
+        for c in CLUSTER_SIZES:
+            if B * c <= 2 * sms and -(-width // c) >= MIN_TILE:
+                cluster = c
+                break
+    if cluster not in CLUSTER_SIZES or lanes not in LANE_COUNTS:
+        raise ValueError(f"K1 takes clusters of {CLUSTER_SIZES} CTAs and "
+                         f"{LANE_COUNTS} lanes per point, not {cluster} and "
+                         f"{lanes}")
+    if -(-width // cluster) > MAX_TILE:
+        raise ValueError(f"K1 takes width tiles of up to {MAX_TILE} points, "
+                         f"not {-(-width // cluster)} ({width} over "
+                         f"{cluster} CTAs)")
+    return cluster, lanes
+
+
+def _launch(tt, fixed, packed, replace, active, cluster=None, lanes=None):
+    """Launch K1 for (B, Z, X) CUDA fields; returns (new, delta, scale).
+    ``cluster``/``lanes`` override ``launch_config``'s choice."""
     global LAUNCHES
     if tt.dim() != 3 or fixed.shape != tt.shape:
         raise ValueError(f"K1 takes (B, Z, X) fields and a fixed mask of the "
@@ -144,7 +190,9 @@ def _launch(tt, fixed, packed, replace, active):
         raise TypeError("material planes and fields differ in dtype")
     tt = tt.contiguous()
     fixed = fixed.to(torch.bool).contiguous()
+    C, G = launch_config(B, Z, X, _sm_count(tt.device), cluster, lanes)
     out = torch.empty_like(tt)
+    scratch = torch.empty_like(tt)
     delta = torch.empty(B, dtype=dt, device=tt.device)
     scale = torch.empty(B, dtype=dt, device=tt.device)
     rep = torch.as_tensor(np.asarray(replace, np.int32)).to(tt.device)
@@ -153,12 +201,13 @@ def _launch(tt, fixed, packed, replace, active):
     lib = build()
     fn = lib.alifmm_sweep_pass_f32 if dt == torch.float32 else lib.alifmm_sweep_pass_f64
     stream = torch.cuda.current_stream(tt.device).cuda_stream
-    err = fn(tt.data_ptr(), out.data_ptr(), fixed.data_ptr(),
-             planes.data_ptr(), bstride, packed.phase_tab.data_ptr(),
+    err = fn(tt.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+             fixed.data_ptr(), planes.data_ptr(), packed.planes_t.data_ptr(),
+             bstride, packed.phase_tab.data_ptr(),
              packed.phase_tab.shape[1], packed.col_mode.data_ptr(),
              packed.col_const.data_ptr(), int(packed.has_stif), packed.dnx,
              rep.data_ptr(), act.data_ptr(), delta.data_ptr(),
-             scale.data_ptr(), B, Z, X, stream)
+             scale.data_ptr(), B, Z, X, C, G, stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     LAUNCHES += 1

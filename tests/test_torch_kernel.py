@@ -4,7 +4,8 @@ K1 is CUDA C++ with no CPU mode, so these tests skip without a card; on
 the card, ``python3 chip_smoke.py`` runs the same comparisons (it holds
 the helpers used here) and ``python -m pytest tests/test_torch_kernel.py``
 runs this file with ``--noconftest`` (tests/conftest.py imports jax,
-which the card's host does not have)."""
+which the card's host does not have).  Tolerances: 1e-12 (float64) and
+1e-5 (float32) relative per pass; K1 is expected to equal the twin."""
 
 import pytest
 import torch
@@ -21,16 +22,16 @@ def device():
     return torch.device("cuda", 0)
 
 
+@pytest.mark.parametrize("case", sorted(chip_smoke.PASS_CASES))
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_k1_pass_matches_plain_twin(device, dtype):
-    model = chip_smoke.small_model(dtype, device)
-    tt, fixed = chip_smoke.seeded(model.shape, 3, dtype, device)
-    mid, _ = chip_smoke.check_pass(model, tt, fixed, False, dtype, "min")
-    chip_smoke.check_pass(model, mid, fixed, True, dtype, "replace")
+def test_k1_pass_matches_plain_twin(device, dtype, case):
+    """A min pass and a replace pass at every launch shape of the case."""
+    chip_smoke.check_case(case, dtype, device)
 
 
-def test_k1_fixpoint_and_patches_match_plain_twin(device):
-    chip_smoke.phase_kernel_vs_plain(device)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k1_fixpoint_and_patches_match_plain_twin(device, dtype):
+    chip_smoke.check_fixpoint(dtype, device)
 
 
 def test_k1_wrapper_rejects_mismatched_planes(device):

@@ -43,7 +43,7 @@ CASES = {"weld": _weld_inputs, "tables": _table_inputs}
 def _both(name):
     args = CASES[name]()
     jm = jgrid.make_model(*args, 2e-4, dtype=jnp.float64)
-    tm = tgrid.make_model(*args, 2e-4, dtype=torch.float64)
+    tm = tgrid.make_model(*args, 2e-4, dtype=torch.float64, device="cpu")
     return jm, tm
 
 
@@ -95,6 +95,36 @@ def test_velocity_dispatch_matches_jax(case):
         want = np.asarray(jfn(jm, jnp.asarray(eff)))
         got = tfn(tm, torch.from_numpy(eff)).numpy()
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)
+
+
+def _build_default(entry):
+    args = _weld_inputs()
+    if entry == "make_model":
+        return tgrid.make_model(*args, 2e-4)
+    tm = tgrid.make_model(*args, 2e-4, device="cpu")
+    fields = {name: (None if getattr(tm, name) is None
+                     else getattr(tm, name).numpy())
+              for name in tgrid.TENSOR_FIELDS}
+    return tgrid.model_from_numpy(fields, tm.has_stif, tm.phase_info,
+                                  tm.group_info, tm.ray_info,
+                                  skew_info=tm.skew_info)
+
+
+@pytest.mark.parametrize("entry", ["make_model", "model_from_numpy"])
+def test_default_device_is_the_card(entry):
+    """With no ``device`` a model is built on the CUDA card; a host without
+    one raises instead of building on the CPU."""
+    if torch.cuda.is_available():
+        assert _build_default(entry).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            _build_default(entry)
+
+
+def test_explicit_cpu_device_builds_on_the_cpu():
+    tm = tgrid.make_model(*_weld_inputs(), 2e-4, device="cpu")
+    assert tm.device.type == "cpu"
+    assert tgrid.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_fallback_planes_on_patches_match_jax():

@@ -28,7 +28,7 @@ def setup():
     jm = jgrid.make_model(veln, velpn, vel_map, stif, None, None,
                           weld_data.DNX, dtype=jnp.float64)
     tm = tgrid.make_model(veln, velpn, vel_map, stif, None, None,
-                          weld_data.DNX, dtype=torch.float64)
+                          weld_data.DNX, dtype=torch.float64, device="cpu")
     sx, sy, pairs = weld_data.transducers(SHAPE, weld_data.DNX, 3, 15)
     scx, scz, src_xy, rec_xy, tidx = weld_data.ray_pairs(sx, sy, pairs)
     # receiver fields: straight-ray times at 5790 m/s with a seeded

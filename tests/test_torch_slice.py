@@ -40,7 +40,7 @@ def test_weld_slice_matches_jax():
                             return_reason=True, **RAY_OPTS)
 
     tm = tgrid.make_model(veln, velpn, vel_map, stif, None, None, dnx,
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     tf, tinfo = tsolver._staged_solve(tm, torch.from_numpy(scx),
                                       torch.from_numpy(scz), STAGES, 4, -1.0,
                                       tsolver.SolveConfig(**BUDGET),

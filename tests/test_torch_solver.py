@@ -31,7 +31,7 @@ def problem():
               for n in tgrid.TENSOR_FIELDS}
     tm = tgrid.model_from_numpy(fields, jm.has_stif, jm.phase_info,
                                 jm.group_info, jm.ray_info,
-                                dtype=torch.float64)
+                                device="cpu", dtype=torch.float64)
     # top edge, interior, left edge
     scx = dnx * np.array([10.0, 30.0, 0.0])
     scz = dnx * np.array([0.0, 20.0, 40.0])

@@ -69,7 +69,7 @@ def _weld_case(seed):
 
 def _compare(args, tt, causal):
     jm = jgrid.make_model(*args, dtype=jnp.float64)
-    tm = tgrid.make_model(*args, dtype=torch.float64)
+    tm = tgrid.make_model(*args, dtype=torch.float64, device="cpu")
     fixed = np.zeros(tt.shape, bool)
     want = np.asarray(jst.full_grid_update(jnp.asarray(tt), jm,
                                            jnp.asarray(fixed), causal=causal))

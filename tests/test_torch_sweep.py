@@ -40,7 +40,8 @@ def _torch_model(jm, dtype):
     fields = {n: (None if getattr(jm, n) is None else np.asarray(getattr(jm, n)))
               for n in tgrid.TENSOR_FIELDS}
     return tgrid.model_from_numpy(fields, jm.has_stif, jm.phase_info,
-                                  jm.group_info, jm.ray_info, dtype=dtype)
+                                  jm.group_info, jm.ray_info, device="cpu",
+                                  dtype=dtype)
 
 
 def _seeded(shape, dtype, B=3):
@@ -128,3 +129,31 @@ def test_plain_twin_matches_pallas_kernel(monkeypatch):
                                    torch.from_numpy(fixed), rel_tol=1e-4,
                                    max_passes=8, polish_passes=3)
     _assert_close(got.numpy(), np.asarray(want), fixed, RTOL_PALLAS)
+
+
+@pytest.mark.parametrize("shape,lanes", [((424, 500), 4), ((109, 109), 8),
+                                         ((79, 79), 8)])
+def test_k1_launch_config_fills_the_card(shape, lanes):
+    """31 sources take clusters of 8 CTAs at every stage shape of the weld
+    solve, 4 lanes per point at the wide final stage and 8 at the
+    patches; tiles stay at least MIN_TILE wide."""
+    assert cuda_sweep.launch_config(31, *shape, 132) == (8, lanes)
+    assert cuda_sweep.launch_config(3, 5, 7, 132) == (1, 8)
+    assert cuda_sweep.launch_config(3, 48, 56, 132) == (4, 8)
+    assert cuda_sweep.launch_config(1, 64, 64, 132, 8, 4) == (8, 4)
+    for bad in (dict(cluster=3), dict(cluster=16), dict(lanes=16)):
+        with pytest.raises(ValueError):
+            cuda_sweep.launch_config(31, *shape, 132, **bad)
+    with pytest.raises(ValueError):
+        cuda_sweep.launch_config(1, 10, 2000, 132, cluster=1)
+
+
+def test_pack_model_transposed_planes(f64):
+    """The x-sweeps' planes are the z-sweeps' planes transposed."""
+    _, tm, _, _ = f64
+    packed = cuda_sweep.pack_model(tm)
+    assert packed.planes.shape[-3:] == (12,) + tm.shape
+    torch.testing.assert_close(packed.planes_t,
+                               packed.planes.transpose(-1, -2), rtol=0,
+                               atol=0)
+    assert packed.planes_t.is_contiguous()
