@@ -234,6 +234,19 @@ def _np_fallback_slowness_planes(veln, velpn, vel_map, stif, group_tab,
     return np.stack(planes)
 
 
+def _unique_rows(rows):
+    """The sorted unique rows of a 2-D array and each row's index among
+    them: ``np.unique(rows, axis=0, return_inverse=True)``, by a lexsort
+    of the columns, which takes a fraction of its time at 200,000 rows."""
+    order = np.lexsort(rows.T[::-1])
+    srt = rows[order]
+    first = np.ones(len(srt), dtype=bool)
+    first[1:] = np.any(srt[1:] != srt[:-1], axis=1)
+    inv = np.empty(len(srt), dtype=np.intp)
+    inv[order] = np.cumsum(first) - 1
+    return srt[first], inv
+
+
 def _ray_curve_tables(velpn_np, stif_np, group_tab_np, phase_tab_np,
                       has_stif):
     """Unified per-cell-class curve tables of the ray tracer: returns
@@ -246,7 +259,7 @@ def _ray_curve_tables(velpn_np, stif_np, group_tab_np, phase_tab_np,
     idx = np.asarray(velpn_np, dtype=np.int32).copy()
     if has_stif:
         flat = np.asarray(stif_np, dtype=np.float64).reshape(-1, 5)
-        uniq, inv = np.unique(flat, axis=0, return_inverse=True)
+        uniq, inv = _unique_rows(flat)
         ang = np.arange(181.0)[:, None]
         ucurves = _np_group_velocity_christoffel(
             ang, uniq[None, :, 0], uniq[None, :, 1], uniq[None, :, 2],

@@ -19,7 +19,10 @@ import torch
 __all__ = [
     "group_velocity_christoffel",
     "phase_velocity_christoffel",
+    "generate_group_vel_curve",
+    "generate_phase_vel_curve",
     "default_tables",
+    "build_tables",
     "interp_table",
     "interp_table_gather",
     "column_info",
@@ -80,12 +83,96 @@ def phase_velocity_christoffel(angle_deg, c22, c23, c33, c44, rho,
     return 1000.0 * vel_scale * torch.sqrt(lam / rho)
 
 
+def generate_group_vel_curve(c22, c23, c33, c44, density):
+    """361-entry group-velocity curve of one material (1-degree steps,
+    180-degree periodic) from stiffness in Pa and density: host numpy in
+    float64, integer angles, exact axis values at multiples of 90."""
+    out = np.zeros(361)
+    for angle in range(181):
+        if angle % 90 == 0:
+            lam = c33 if angle % 180 == 90 else c22
+            v = np.sqrt(lam / density)
+        else:
+            tan_ang = np.tan(np.radians(angle))
+            A = c22 + c33 - 2 * c44
+            B = (c23 + c44) * (tan_ang - 1.0 / tan_ang)
+            C = c22 - c33
+            root = np.sqrt(B**2 + A**2 - C**2)
+            if angle < 90:
+                pa = np.arctan((-B - root) / (C - A)) % np.pi
+            else:
+                pa = np.arctan((-B + root) / (C - A)) % np.pi
+            lam = 0.5 * (
+                np.cos(2 * pa) * (c22 - c44)
+                + np.sin(2 * pa) * (c23 + c44) * tan_ang
+                + c22
+                + c44
+            )
+            v = np.sqrt(lam / density) / np.cos(np.radians(angle) - pa)
+        out[angle] = v
+    out[180:] = out[:181]
+    return out
+
+
+def generate_phase_vel_curve(c22, c23, c33, c44, density):
+    """361-entry phase-velocity curve of one material (see
+    ``generate_group_vel_curve``)."""
+    out = np.zeros(361)
+    for angle in range(181):
+        if angle % 90 == 0:
+            lam = c33 if angle % 180 == 90 else c22
+            v = np.sqrt(lam / density)
+        else:
+            ca = np.cos(np.radians(angle))
+            sa = np.sin(np.radians(angle))
+            A = ca * ca * c22 + sa * sa * c44
+            B = ca * sa * (c23 + c44)
+            C = ca * ca * c44 + sa * sa * c33
+            v = np.sqrt((A + C + np.sqrt((A - C) ** 2 + 4 * B * B))
+                        / (2 * density))
+        out[angle] = v
+    out[180:] = out[:181]
+    return out
+
+
 def default_tables():
     """Default velocity tables: column 0 is the angle, column 1 an
     isotropic unit-velocity material."""
     tab = np.ones((361, 2))
     tab[:, 0] = np.arange(0, 361)
     return tab, tab.copy()
+
+
+def build_tables(materials, velocity_dat=None, phase_vel=None,
+                 keep_materials=False):
+    """(group, phase) velocity tables from material rows (c22, c23, c33,
+    c44, density) in Pa.  ``keep_materials`` appends the new columns to the
+    given tables; otherwise the tables are rebuilt with column 0 the angle
+    (a 2-D ``materials`` sizes them by its column count, as the reference
+    does).  Returns (group_tab, phase_tab, new column ids)."""
+    materials = np.asarray(materials)
+    rows = materials[None, :] if materials.ndim == 1 else materials
+    if keep_materials:
+        if velocity_dat is None or phase_vel is None:
+            raise ValueError("keep_materials needs the tables to extend")
+        base = velocity_dat.shape[1]
+        n_fill = rows.shape[0]
+        g = np.zeros((361, base + n_fill))
+        p = np.zeros((361, base + n_fill))
+        g[:, :base] = velocity_dat
+        p[:, :base] = phase_vel
+    else:
+        base = 1
+        ncols = 2 if materials.ndim == 1 else materials.shape[1] + 1
+        n_fill = min(rows.shape[0], ncols - 1)
+        g = np.zeros((361, ncols))
+        p = np.zeros((361, ncols))
+        g[:, 0] = np.arange(0, 361)
+        p[:, 0] = np.arange(0, 361)
+    for i in range(n_fill):
+        g[:, base + i] = generate_group_vel_curve(*rows[i])
+        p[:, base + i] = generate_phase_vel_curve(*rows[i])
+    return g, p, list(range(base, base + n_fill))
 
 
 def interp_table_gather(table, eff_angle_deg, mat_idx, vel_map):

@@ -6,7 +6,7 @@ sources, a cluster of C CTAs per source with G lanes per point
 (``launch_config``), and returns each source's pass-to-pass delta and
 scale.  It is compiled with ``nvcc`` for ``sm_90a`` into a library
 with a plain C interface at first use, into ``alifmm_tpu_torch/_build/``,
-and loaded with ``ctypes``.
+and loaded with ``ctypes`` (``ops/_build.py``).
 
 ``sweep_pass`` is the wrapper: for CUDA tensors it launches K1 (and raises
 on any failure), for CPU tensors it runs the plain twin
@@ -18,10 +18,7 @@ the per-pass delta and scale to the host once per pass.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import typing
 
 import numpy as np
@@ -29,19 +26,14 @@ import torch
 
 from .. import grid as gridlib
 from .. import materials as mat
-from . import sweep
+from . import _build, sweep
 
 __all__ = ["LAUNCHES", "build", "launch_config", "pack_model", "sweep_pass",
            "solve_fixpoint"]
 
 LAUNCHES = 0
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_PKG = os.path.dirname(_HERE)
-SOURCE = os.path.join(_PKG, "csrc", "sweep.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(_build.CSRC, "sweep.cu")
 _LIB = None
 BUILD_LOG = ""
 # Launch shapes K1 is built for (csrc/sweep.cu): clusters of up to 8 CTAs
@@ -56,18 +48,6 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found: K1 is built from csrc/ with the CUDA "
-                       "toolkit's nvcc")
-
-
 def build(verbose: bool = False):
     """Compile ``csrc/sweep.cu`` (once per process and source version) and
     return the loaded library.  ``verbose`` adds ``-Xptxas -v`` and keeps
@@ -75,20 +55,7 @@ def build(verbose: bool = False):
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"libalifmm_sweep_{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, SOURCE]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
+    lib, BUILD_LOG = _build.compile_library(SOURCE, "alifmm_sweep", verbose)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("alifmm_sweep_pass_f32", "alifmm_sweep_pass_f64"):
         fn = getattr(lib, name)

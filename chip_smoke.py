@@ -8,19 +8,33 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
 
 1. device check: a CUDA device must be present; prints nvidia-smi's name
    and power limit;
-2. builds the sweep kernel K1 from ``alifmm_tpu_torch/csrc`` with nvcc;
+2. builds the kernels from ``alifmm_tpu_torch/csrc`` with nvcc, one
+   compiler per source, both at once: the sweep kernel K1 (``sweep.cu``)
+   and the ray kernels K2 and K3 (``rays.cu``);
 3. holds K1 against its plain PyTorch twin on the card, in float64 and
    float32: a min pass and a replace pass on each case of ``PASS_CASES``
    (48 x 56, per-source weld patches of 109 x 109 and 79 x 79, narrow
    5 x 7 and 37 x 131 with ragged and empty width tiles, a tie-heavy
    isotropic 64 x 64) at several launch shapes, and a full fixpoint on
    48 x 56 (equal pass counts in float64);
-4. analytic check at full size: homogeneous isotropic 424 x 500, one
+4. holds the ray kernels against their plain twins on the card, in
+   float64 and float32: the four segment integrators on seeded segments
+   over the 48 x 56 and the weld model (``check_segments``), and on
+   48 x 56 the march with the weld's knobs and with the facade's
+   defaults, one relaxation wave of each parity and scorer and the ray
+   times on the marched polylines (``check_march``);
+5. analytic check at full size: homogeneous isotropic 424 x 500, one
    interior source, relative error against r / v;
-5. the weld slice at full size in float32: 31 receiver fields through the
-   telescoped solver, then 961 rays; a warm-up run, then one timed run
-   with every launch count set to 0 just before it;
-6. K1 timed warm (CUDA events) on each stage's input of the weld solve
+6. the weld slice at full size in float32, 31 receiver fields and 961
+   rays: first the direct path (``solve_ttf`` + ``trace_rays``; a warm-up
+   run, then a timed one), then through the facade
+   (``ALI_FMM.find_all_TTF_rays_parallel``; a warm-up call, then a timed
+   one with every launch count set to 0 just before it);
+7. the ray kernels at the weld shape: the march, a relaxation wave and
+   the ray times against their twins on the fields just solved (float32
+   and float64), each timed warm (CUDA events) beside its bound and its
+   twin's time;
+8. K1 timed warm (CUDA events) on each stage's input of the weld solve
    (31 x 109 x 109 twice, 31 x 79 x 79, 31 x 424 x 500; float32) beside
    its bound, at its own launch shape and at every other one; one plain
    pass at the final shape, timed and compared.
@@ -31,6 +45,7 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -55,6 +70,35 @@ SOLVE_KW = dict(final_rel_tol=3e-3, final_polish_passes=2,
                 patch_block=2)
 RAY_OPTS = dict(max_cross=8, step_scale=9, plane_dist=5, quad_vel=3,
                 relax_iters=1, relax_quad=3, max_steps=115, cand_stride=7.0)
+# Ray kernels against their twins.  The kernels follow the twins operation
+# for operation, sums included (Simpson samples in sample order, crossing
+# intervals in sorted order, walk steps in step order), so the differences
+# are expected to be 0 and are printed.  Held to:
+# - segment integrators and relaxation waves: 1e-12 (float64) and 1e-5
+#   (float32) relative, the room a differently ordered sum would need;
+# - ray times: the same, because the kernel adds a ray's segments in a
+#   fixed tree and the twin with torch.sum, whose order is not stated;
+# - the march in float64: lengths, reasons and step counts equal and
+#   vertices within 1e-9 fine cells;
+# - the march in float32: a tie between candidates may flip on one ulp and
+#   send a ray another way, so at least 99 % of the rays must equal the
+#   twin's in length, reason, step count and every vertex (difference 0);
+#   a ray that flipped and ends for the same reason must have a travel
+#   time within 1e-4 relative of the twin's (production modes compare
+#   times).  The largest vertex difference over all rays is printed and
+#   goes into the kernels line.
+TOL_SEG = {torch.float64: 1e-12, torch.float32: 1e-5}
+TOL_VERTEX_F64 = 1e-9
+TOL_TIME_F32 = 1e-4
+MIN_EQUAL_F32 = 0.99
+# Operations for the ray kernels' bounds, counted from the twins in
+# alifmm_tpu_torch/rays.py: a material sample (cell index, row gather, two
+# floor-mods, table interpolation, a divide) about 60, a segment's set-up
+# (arctan, square root, divides) about 30, a bilinear field sample about
+# 30, a step's plane geometry about 100, an interior column about 20.
+OPS_SAMPLE, OPS_SEGMENT, OPS_BILINEAR, OPS_PLANE, OPS_COLUMN = 60, 30, 30, 100, 20
+NO_LIBRARY = ("no PyTorch call computes a plane-search march or a "
+              "cell-crossing integral")
 
 
 class SmokeFailure(RuntimeError):
@@ -261,6 +305,252 @@ def phase_kernel_vs_plain(device):
     return worst
 
 
+# --------------------------------------------------------------------- #
+# Ray kernels (K2, K3) against their plain twins
+# --------------------------------------------------------------------- #
+
+# march knobs by name: (trace_rays knobs, fine cells per model cell)
+MARCH_KNOBS = {
+    "weld knobs": (RAY_OPTS, 9),
+    "facade defaults": (dict(), 3),
+}
+RAY_MODELS = ("48x56", "weld")
+# (name, integrator code of ops/cuda_rays.py, crossing budget)
+SEGMENT_KINDS = (("simpson3", 0, 0), ("simpson5", 1, 0), ("walk", 2, 16),
+                 ("walk 26", 2, 26), ("exact", 3, 8), ("exact 40", 3, 40))
+
+
+def ray_model(name, dtype, device):
+    """The models the ray kernels are checked on: the 48 x 56 weld-like
+    problem or the full seeded weld."""
+    from alifmm_tpu_torch import grid, weld_data
+
+    if name == "48x56":
+        return small_model(dtype, device)
+    veln, velpn, vel_map, stif = weld_data.weld_model_arrays(0)
+    return grid.make_model(veln, velpn, vel_map, stif, None, None,
+                           weld_data.DNX, dtype=dtype, device=device)
+
+
+def seeded_segments(shape, s, n, seed, dtype, device):
+    """n segments in fine-grid coordinates from a seed: up to 12 model
+    cells long in any direction, with blocks that are vertical,
+    horizontal, of zero length, leaving the grid, 40 cells long (more
+    crossings than any budget here) and on integer fine-grid points."""
+    rng = np.random.default_rng(seed)
+    Z, X = shape
+    x1 = rng.uniform(0, (X - 1) * s, n)
+    y1 = rng.uniform(0, (Z - 1) * s, n)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    length = rng.uniform(0, 12 * s, n)
+    q = n // 8
+    length[4 * q:5 * q] = 40 * s
+    x1[3 * q:4 * q] = rng.uniform(-3 * s, 2 * s, q)
+    y1[3 * q:3 * q + q // 2] = rng.uniform((Z - 3) * s, (Z + 2) * s, q // 2)
+    x2 = x1 + length * np.cos(ang)
+    y2 = y1 + length * np.sin(ang)
+    x2[:q] = x1[:q]
+    y2[q:2 * q] = y1[q:2 * q]
+    x2[2 * q:2 * q + 16] = x1[2 * q:2 * q + 16]
+    y2[2 * q:2 * q + 16] = y1[2 * q:2 * q + 16]
+    pts = [x1, y1, x2, y2]
+    for a in pts:
+        a[5 * q:6 * q] = np.round(a[5 * q:6 * q])
+    return [torch.as_tensor(a).to(dtype).to(device) for a in pts]
+
+
+def worst_rel(got, want):
+    """Largest |got - want| and the largest relative to |want| (0 where
+    both are 0)."""
+    got, want = got.double(), want.double()
+    check(bool(torch.isfinite(got).all()), "kernel result not finite")
+    d = (got - want).abs()
+    rel = torch.where(d == 0, torch.zeros_like(d),
+                      d / want.abs().clamp_min(1e-300))
+    return float(d.max()), float(rel.max())
+
+
+def check_segments(model_name, dtype, device, n=4096):
+    """The kernels' four segment integrators against segment_time_quad3,
+    segment_time_quad, _segment_time_walk and segment_time on seeded
+    segments.  Returns the largest absolute difference."""
+    from alifmm_tpu_torch import rays
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    model = ray_model(model_name, dtype, device)
+    mat_flat = rays._material_flat(model)
+    dname = str(dtype).replace("torch.", "")
+    worst = 0.0
+    for s in (9, 3):
+        pts = seeded_segments(model.shape, s, n, 17 + s, dtype, device)
+        for name, kind, cross in SEGMENT_KINDS:
+            if kind == cuda_rays.SIMPSON3:
+                want = rays.segment_time_quad3(model, mat_flat, *pts, s)
+            elif kind == cuda_rays.SIMPSON5:
+                want = rays.segment_time_quad(model, mat_flat, *pts, s)
+            elif kind == cuda_rays.WALK:
+                want = rays._segment_time_walk(model, mat_flat, *pts, s, cross)
+            else:
+                want = rays.segment_time(model, mat_flat, *pts, s, cross)
+            got = cuda_rays.segments(model, mat_flat, kind, *pts, s, cross)
+            torch.cuda.synchronize()
+            abs_e, rel_e = worst_rel(got, want)
+            log(f"  segments {model_name} s={s} {name} {dname}: max abs "
+                f"{abs_e:.3e} max rel {rel_e:.3e} (tolerance "
+                f"{TOL_SEG[dtype]:.0e})")
+            check(rel_e <= TOL_SEG[dtype],
+                  f"segment integrator {name} differs from its twin")
+            worst = max(worst, abs_e)
+    return worst
+
+
+def compare_march(got, want, model, mat_flat, s, final_cross, dtype, what):
+    """A marched batch (bx, by, length, reason, steps) against the twin's,
+    to the tolerances stated at the top.  Returns the largest vertex
+    difference over all rays in fine cells, and the share of rays that
+    are equal in length, reason, steps and every vertex."""
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    gx, gy, glen, greason, gsteps = got
+    wx, wy, wlen, wreason, wsteps = want
+    per_ray = torch.maximum((gx - wx).abs().amax(1), (gy - wy).abs().amax(1))
+    vertex = float(per_ray.max())
+    same_reason = greason == wreason
+    equal = (same_reason & (glen == wlen) & (gsteps == wsteps)
+             & (per_ray == 0))
+    share = float(equal.double().mean())
+    log(f"  march {what}: largest vertex difference {vertex:.3e} fine "
+        f"cells; rays equal in length, reason, steps and vertices "
+        f"{share:.4f}, reasons agree "
+        f"{float(same_reason.double().mean()):.4f}; steps max "
+        f"{int(gsteps.max())} mean {float(gsteps.double().mean()):.1f}")
+    if dtype == torch.float64:
+        check(torch.equal(glen, wlen) and torch.equal(greason, wreason)
+              and torch.equal(gsteps, wsteps),
+              f"march {what}: lengths, reasons or steps differ")
+        check(vertex <= TOL_VERTEX_F64, f"march {what}: vertices differ")
+        return vertex, share
+    check(share >= MIN_EQUAL_F32,
+          f"march {what}: only {share:.4f} of the rays equal the twin's")
+    flipped = ~equal & same_reason
+    if bool(flipped.any()):
+        gt = cuda_rays.ray_times(model, mat_flat, gx, gy, glen, s,
+                                 final_cross)
+        wt = cuda_rays.ray_times(model, mat_flat, wx, wy, wlen, s,
+                                 final_cross)
+        rel = ((gt - wt).abs() / wt.abs().clamp_min(1e-30))[flipped]
+        log(f"    {int(flipped.sum())} rays took another path to the same "
+            f"end: ray times max rel {float(rel.max()):.3e} (tolerance "
+            f"{TOL_TIME_F32:.0e})")
+        check(float(rel.max()) <= TOL_TIME_F32,
+              f"march {what}: ray times of the flipped rays differ")
+    return vertex, share
+
+
+def compare_polish(model, mat_flat, bx, by, length, s, final_cross, dtype,
+                   what):
+    """One relaxation wave of each parity and scorer, and the ray times,
+    kernels against twins on the polylines (bx, by, length).  Returns the
+    largest differences by kernel: waves in fine cells, times in seconds
+    and relative."""
+    from alifmm_tpu_torch import rays
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    worst_wave = 0.0
+    for quad in (3, True, 0):
+        for parity in (1, 0):
+            args = (model, mat_flat, bx, by, length, s, parity, float(s),
+                    final_cross, quad)
+            gx, gy = cuda_rays.relax_wave(*args)
+            wx, wy = rays.relax_wave_plain(*args)
+            torch.cuda.synchronize()
+            check(not torch.equal(wx, bx), "the relaxation wave moved nothing")
+            ax, rx = worst_rel(gx, wx)
+            ay, ry = worst_rel(gy, wy)
+            log(f"  relax wave {what} quad={int(quad)} parity={parity}: max "
+                f"abs {max(ax, ay):.3e} fine cells, max rel "
+                f"{max(rx, ry):.3e} (tolerance {TOL_SEG[dtype]:.0e})")
+            check(max(rx, ry) <= TOL_SEG[dtype],
+                  f"relax wave {what} quad={quad} differs from its twin")
+            worst_wave = max(worst_wave, ax, ay)
+    gt = cuda_rays.ray_times(model, mat_flat, bx, by, length, s, final_cross)
+    wt = rays.ray_times_plain(model, mat_flat, bx, by, length, s, final_cross)
+    torch.cuda.synchronize()
+    abs_t, rel_t = worst_rel(gt, wt)
+    log(f"  ray times {what}: max abs {abs_t:.3e} s, max rel {rel_t:.3e} "
+        f"(tolerance {TOL_SEG[dtype]:.0e})")
+    check(rel_t <= TOL_SEG[dtype], f"ray times {what} differ from the twin")
+    return dict(relax_wave=worst_wave, ray_times=abs_t, ray_times_rel=rel_t)
+
+
+def march_inputs(model, knobs, s, sx, sy, pairs, dnx):
+    """(mat_flat, tidx, src_xy, rec_xy, spec, final_cross) of a march over
+    ``pairs`` with trace_rays' ``knobs`` at ``s`` fine cells per model
+    cell."""
+    from alifmm_tpu_torch import rays, weld_data
+
+    kw = dict(max_steps=None, max_cross=16, step_scale=1, quad_vel=False,
+              cand_stride=1.0, plane_dist=3, near_step=1)
+    kw.update({k: v for k, v in knobs.items() if k in kw})
+    spec = rays.march_spec(model, s, **kw)
+    _, _, src_xy, rec_xy, tidx = weld_data.ray_pairs(sx, sy, pairs, dnx, s)
+    dev = model.device
+
+    def on_dev(a, dt):
+        return torch.as_tensor(a).to(dt).to(dev)
+
+    final_cross = max(-(-kw["max_cross"] // 2) + 1, spec.k_step + 4)
+    return (rays._material_flat(model), on_dev(tidx, torch.int64),
+            on_dev(src_xy, model.dtype), on_dev(rec_xy, model.dtype), spec,
+            final_cross)
+
+
+def check_march(knobs_name, dtype, device):
+    """On 48 x 56 (25 rays through 5 solved fields): the march kernel
+    against march_plain, then the relaxation waves and ray times on its
+    polylines.  Returns the largest differences by kernel."""
+    from alifmm_tpu_torch import rays, solver, weld_data
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    model = small_model(dtype, device)
+    dnx = float(model.dnx)
+    sx, sy, pairs = weld_data.transducers(model.shape, dnx, 5, 10)
+    scx, scz = weld_data.ray_pairs(sx, sy, pairs, dnx)[:2]
+    ttfs = solver.solve_ttf(model, torch.as_tensor(scx), torch.as_tensor(scz),
+                            1, solver.SolveConfig(**SOLVE_KW))
+    mat_flat, tidx, src, rec, spec, final_cross = march_inputs(
+        model, *MARCH_KNOBS[knobs_name], sx, sy, pairs, dnx)
+    args = (model, mat_flat, ttfs, tidx, src, rec, spec)
+    got = cuda_rays.march(*args)
+    want = rays.march_plain(*args)
+    torch.cuda.synchronize()
+    what = f"48x56 {knobs_name} {str(dtype).replace('torch.', '')}"
+    vertex, equal = compare_march(got, want, model, mat_flat, spec.s,
+                                  final_cross, dtype, what)
+    errs = compare_polish(model, mat_flat, *want[:3], spec.s, final_cross,
+                          dtype, what)
+    errs["march"] = vertex
+    errs["march_unequal"] = 1.0 - equal
+    return errs
+
+
+def merge_worst(worst, errs):
+    """Keep the largest difference by kernel, over both types."""
+    for key, e in errs.items():
+        worst[key] = max(worst.get(key, 0.0), e)
+
+
+def phase_rays_vs_plain(device):
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        for name in RAY_MODELS:
+            merge_worst(worst, dict(segments=check_segments(
+                name, dtype, device)))
+        for knobs_name in MARCH_KNOBS:
+            merge_worst(worst, check_march(knobs_name, dtype, device))
+    return worst
+
+
 def phase_analytic(device):
     from alifmm_tpu_torch import grid, solver
 
@@ -321,8 +611,38 @@ def run_slice(inputs, progress=None):
     return ttfs, info, out, (t1 - t0, t2 - t1, t2 - t0)
 
 
+def reset_counts():
+    """Set every kernel's launch count and every plain twin's count to 0."""
+    from alifmm_tpu_torch import rays
+    from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep, sweep
+
+    cuda_sweep.LAUNCHES = 0
+    sweep.CALLS = 0
+    rays.PLAIN_STEPS = 0
+    for name in cuda_rays.LAUNCHES:
+        cuda_rays.LAUNCHES[name] = 0
+
+
+def read_counts():
+    from alifmm_tpu_torch import rays
+    from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep, sweep
+
+    return dict(sweep_pass=cuda_sweep.LAUNCHES, plain_passes=sweep.CALLS,
+                plain_steps=rays.PLAIN_STEPS, **cuda_rays.LAUNCHES)
+
+
+def check_counts(counts, what):
+    """The run went through every kernel and through no plain twin."""
+    for name in ("sweep_pass", "march", "relax_wave", "ray_times"):
+        check(counts[name] > 0, f"{what} launched no {name} kernel")
+    check(counts["plain_passes"] == 0,
+          f"{what} ran the plain sweep pass on the card")
+    check(counts["plain_steps"] == 0,
+          f"{what} ran plain march steps on the card")
+
+
 def phase_slice(device):
-    from alifmm_tpu_torch.ops import cuda_sweep, sweep
+    """The direct path: solve_ttf, then trace_rays, on device inputs."""
     from alifmm_tpu_torch.ops.stencils import INF
 
     inputs = weld_inputs(device)
@@ -334,30 +654,271 @@ def phase_slice(device):
     def rec(stage, total, name, seconds):
         stages.append((name, seconds))
 
-    cuda_sweep.LAUNCHES = 0
-    sweep.CALLS = 0
+    reset_counts()
     ttfs, info, out, (t_solve, t_rays, wall) = run_slice(inputs, rec)
-    launches, plain_calls = cuda_sweep.LAUNCHES, sweep.CALLS
+    counts = read_counts()
     bx, by, lengths, times, reason = out
-    log(f"  weld slice warm wall clock {wall:.4f} s (solve {t_solve:.4f} s, "
-        f"rays {t_rays:.4f} s)")
+    log(f"  direct weld slice warm wall clock {wall:.4f} s (solve "
+        f"{t_solve:.4f} s, rays {t_rays:.4f} s)")
     for name, sec in stages:
         log(f"    stage [{name}] {sec:.4f} s")
     log(f"  final stage passes {info.passes} converged {info.converged}")
-    log(f"  K1 launches {launches}, plain twin passes {plain_calls}")
+    log(f"  launches and plain-twin counts: {counts}")
     reasons = {int(k): int(v) for k, v in
                zip(*np.unique(reason.cpu().numpy(), return_counts=True))}
     log(f"  rays by reason (0 arrived, 1 plane left grid, 2 truncated): "
         f"{reasons}")
-    check(launches > 0, "the main path launched no K1")
-    check(plain_calls == 0, "the main path ran the plain twin on the card")
+    check_counts(counts, "the direct weld slice")
     check(ttfs.shape == (31, 424, 500), f"field shape {tuple(ttfs.shape)}")
     check(bool(torch.isfinite(ttfs).all()) and bool((ttfs < INF * 0.5).all()),
           "weld fields not finite everywhere")
     check(times.shape == (961,), f"times shape {tuple(times.shape)}")
     check(bool(torch.isfinite(times).all()) and bool((times > 0).all()),
           "ray times not finite and positive")
-    return inputs, launches, wall, stages
+    arrived = (reason == 0) & (lengths - 2 < RAY_OPTS["max_steps"])
+    check(int(arrived.sum()) == 961,
+          f"only {int(arrived.sum())} of 961 rays arrive")
+    return inputs, ttfs, (wall, t_solve, t_rays)
+
+
+def phase_facade(device):
+    """The weld slice through ALI_FMM.find_all_TTF_rays_parallel: a warm-up
+    call, then a timed one with every count set to 0 just before it."""
+    import alifmm_tpu_torch
+    from alifmm_tpu_torch import weld_data
+
+    alifmm_tpu_torch.tqdm_disable = True  # a bar synchronises every stage
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    fm = alifmm_tpu_torch.ALI_FMM(veln, velpn, vel_map, sx, sy, stif_den=stif,
+                                  dnx=dnx, ray_opts=RAY_OPTS,
+                                  solve_opts=SOLVE_KW)
+    builds = []
+    make_model = fm._make_model
+
+    def timed_make_model(*args):
+        # the build ends in blocking copies to the card, so the
+        # synchronise adds nothing to the call it is timed in
+        t0 = time.perf_counter()
+        model = make_model(*args)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        return model
+
+    fm._make_model = timed_make_model
+
+    def call():
+        del builds[:]
+        t0 = time.perf_counter()
+        out = fm.find_all_TTF_rays_parallel(veln, velpn, vel_map,
+                                            stif_den=stif, trans_pairs=pairs,
+                                            n_threads=8)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, t_warm = call()
+    reset_counts()
+    tmat, wall = call()
+    counts = read_counts()
+    check(len(builds) == 2, f"the facade built {len(builds)} models, not 2")
+    log(f"  facade warm-up call {t_warm:.3f} s; timed call {wall:.4f} s, of "
+        f"which its two model builds {builds[0]:.4f} and {builds[1]:.4f} s "
+        f"(host numpy, timed inside the call)")
+    log(f"  launches and plain-twin counts: {counts}")
+    check_counts(counts, "the facade's weld run")
+    top, bottom = slice(0, 31), slice(31, 62)
+    check(tmat.shape == (62, 62), f"time matrix shape {tmat.shape}")
+    block = tmat[top, bottom]
+    check(bool(np.isfinite(tmat).all()) and bool((block > 0).all()),
+          "top-to-bottom ray times not finite and positive")
+    rest = tmat.copy()
+    rest[top, bottom] = 0
+    check(not rest.any(), "time matrix not zero outside the traced pairs")
+    traced = np.zeros((62, 62), bool)
+    traced[top, bottom] = True
+    check(np.array_equal(fm.ray_len > 0, traced),
+          "ray_len not positive on exactly the 961 traced pairs")
+    rx, ry = fm.ray_path(0, 31)
+    check((rx[0], ry[0]) == (fm.isx[0], fm.isz[0])
+          and (rx[-1], ry[-1]) == (fm.isx[31], fm.isz[31]),
+          "ray_path(0, 31) does not run from transducer 0 to 31")
+    steps = fm.ray_len[top, bottom] - 2
+    log(f"  march 1 launch for 961 rays: steps max {int(steps.max())} mean "
+        f"{steps.mean():.1f}; relax waves {counts['relax_wave']}, ray times "
+        f"{counts['ray_times']}")
+    return counts, wall, sum(builds)
+
+
+def roofline(ops, nbytes):
+    """The least time (ms) for this work on an H100 (SXM data sheet, 700
+    W): fp32 operations over 67 TFLOP/s or bytes over 3.35 TB/s."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ray_bounds(model, mat_flat, ttfs, spec, steps, bx, by, length,
+               final_cross):
+    """Bounds of the three ray kernels for this run's rays.
+
+    Bytes, each counted once and only where this run's rays go: the
+    march's field cells are its steps x the 2 x ``span`` cells that the
+    bilinear samples of one plane touch (``span``: the model cells along a
+    plane of K candidates ``stride`` fine cells apart), at most the whole
+    stack; its material rows are its steps x the cells of the fan from the
+    point to the plane (``span`` / 2 for each sample fraction or plane
+    distance, whichever is fewer); the waves and the ray times read the
+    rows of the cells their polylines cross; every kernel reads the curve
+    table, its per-ray vectors and polylines and writes its outputs.
+
+    Operations, counted from the twins: the march's steps x (plane
+    geometry + K candidates x (field sample + segment set-up + its
+    material samples) + K - 2 interior columns); a wave's moving vertices
+    x 6 Simpson segments; the ray times' real segments x set-up plus their
+    crossing intervals x one material sample."""
+    item = ttfs.element_size()
+    R, P = bx.shape
+    K = spec.K
+    row = mat_flat.shape[1] * item
+    all_rows = mat_flat.shape[0] * row
+    curves = model.ray_curves.numel() * item
+    n_steps = int(steps.sum())
+    n_samples = {0: 3, 1: 5, 2: spec.in_cross}[spec.scorer]
+    span = int((K - 1) * spec.stride / spec.s) + 2
+    fan = min(n_samples, spec.plane_dist + 1) * span // 2 + 1
+    seg_ops = OPS_SEGMENT + n_samples * OPS_SAMPLE
+    march_ops = n_steps * (
+        OPS_PLANE + K * (OPS_BILINEAR + seg_ops) + (K - 2) * OPS_COLUMN)
+    march_bytes = (min(ttfs.numel(), n_steps * 2 * span) * item
+                   + min(all_rows, n_steps * fan * row) + curves
+                   + (4 * R + 2 * R * P) * item + 4 * R * 8)
+    vidx = torch.arange(P, device=bx.device)[None, :]
+    moving = int(((vidx % 2 == 1) & (vidx >= 1)
+                  & (vidx < (length - 1)[:, None])).sum())
+    real = (vidx[:, :-1] + 1) < length[:, None]
+    cross = ((bx[:, 1:] - bx[:, :-1]).abs()
+             + (by[:, 1:] - by[:, :-1]).abs()) / spec.s + 1
+    crossed_rows = min(all_rows, int(cross[real].sum()) * row)
+    wave_ops = moving * (6 * (OPS_SEGMENT + 3 * OPS_SAMPLE) + 40)
+    wave_bytes = crossed_rows + curves + 4 * R * P * item + R * 8
+    intervals = float(cross.clamp_max(2 * final_cross + 1)[real].sum())
+    times_ops = int(real.sum()) * OPS_SEGMENT + intervals * OPS_SAMPLE
+    times_bytes = crossed_rows + curves + (2 * R * P + R) * item + R * 8
+    log(f"  bounds: march {n_steps} steps, {2 * span} field cells and {fan} "
+        f"material rows a step, {march_bytes / 1e6:.2f} MB and "
+        f"{march_ops / 1e9:.3f} Gop; wave {wave_bytes / 1e6:.2f} MB and "
+        f"{wave_ops / 1e9:.4f} Gop; ray times {times_bytes / 1e6:.2f} MB "
+        f"and {times_ops / 1e9:.4f} Gop")
+    return dict(march=roofline(march_ops, march_bytes),
+                relax_wave=roofline(wave_ops, wave_bytes),
+                ray_times=roofline(times_ops, times_bytes))
+
+
+def time_events(fn, n=10):
+    """Warm time per call (ms) of ``fn``: CUDA events over n calls."""
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def time_host(fn):
+    """One call of ``fn`` on the host clock, synchronised: (ms, result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_ray_kernels_weld(inputs, ttfs, worst, device):
+    """The ray kernels at the weld shape (961 rays through the 31 fields
+    just solved): against their twins in float32 and float64 (the largest
+    differences go into ``worst``), and timed warm beside their bounds
+    and their twins."""
+    from alifmm_tpu_torch import rays, weld_data
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        model = (inputs[0] if dtype == torch.float32
+                 else ray_model("weld", dtype, device))
+        fields = ttfs.to(dtype)
+        mat_flat, tidx, src, rec, spec, final_cross = march_inputs(
+            model, *MARCH_KNOBS["weld knobs"], sx, sy, pairs, dnx)
+        args = (model, mat_flat, fields, tidx, src, rec, spec)
+        got = cuda_rays.march(*args)
+        ms_twin, want = time_host(lambda: rays.march_plain(*args))
+        what = f"weld {str(dtype).replace('torch.', '')}"
+        vertex, equal = compare_march(got, want, model, mat_flat, spec.s,
+                                      final_cross, dtype, what)
+        errs = compare_polish(model, mat_flat, *want[:3], spec.s,
+                              final_cross, dtype, what)
+        errs["march"] = vertex
+        errs["march_unequal"] = 1.0 - equal
+        merge_worst(worst, errs)
+        if dtype != torch.float32:
+            continue
+        bx, by, length, _, steps = got
+        h = float(spec.s)
+        wave_args = (model, mat_flat, bx, by, length, spec.s, 1, h,
+                     final_cross, RAY_OPTS["relax_quad"])
+        times_args = (model, mat_flat, bx, by, length, spec.s, final_cross)
+        ms = dict(
+            march=time_events(lambda: cuda_rays.march(*args)),
+            relax_wave=time_events(lambda: cuda_rays.relax_wave(*wave_args)),
+            ray_times=time_events(lambda: cuda_rays.ray_times(*times_args)))
+        plain = dict(
+            march=ms_twin,
+            relax_wave=time_host(
+                lambda: rays.relax_wave_plain(*wave_args))[0],
+            ray_times=time_host(
+                lambda: rays.ray_times_plain(*times_args))[0])
+        bounds = ray_bounds(model, mat_flat, fields, spec, steps, bx, by,
+                            length, final_cross)
+        chain = int(steps.max())
+        log(f"  K2 march {ms['march']:.4f} ms for 961 rays (K = {spec.K}); "
+            f"the longest ray takes {chain} dependent steps: "
+            f"{ms['march'] * 1e3 / chain:.2f} us per step; all rays "
+            f"{int(steps.sum())} steps")
+        for name in ("march", "relax_wave", "ray_times"):
+            b, by_what = bounds[name]
+            log(f"  {name}: kernel {ms[name]:.4f} ms, plain twin "
+                f"{plain[name]:.2f} ms, bound {b:.5f} ms ({by_what}), share "
+                f"{b / ms[name]:.4f}; library call: none ({NO_LIBRARY})")
+        out["ms"], out["plain"], out["bounds"] = ms, plain, bounds
+    merge_worst(worst, check_default_march(inputs[0], ttfs,
+                                           (sx, sy, pairs, dnx)))
+    return out
+
+
+def check_default_march(model, ttfs, geometry):
+    """The march with the facade's default knobs (crossing-walk scorer,
+    one model cell per step, 57 candidates, 9 fine cells per model cell)
+    at the weld shape, float32: K2 against its twin, and its time.
+    Returns the march's differences as ``check_march`` does."""
+    from alifmm_tpu_torch import rays
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    mat_flat, tidx, src, rec, spec, final_cross = march_inputs(
+        model, dict(), 9, *geometry)
+    args = (model, mat_flat, ttfs, tidx, src, rec, spec)
+    got = cuda_rays.march(*args)
+    t_plain, want = time_host(lambda: rays.march_plain(*args))
+    vertex, equal = compare_march(got, want, model, mat_flat, spec.s,
+                                  final_cross, torch.float32,
+                                  "weld, facade defaults, float32")
+    ms = time_events(lambda: cuda_rays.march(*args), n=3)
+    chain = int(got[4].max())
+    log(f"  K2 march with the facade's defaults (walk scorer, K = {spec.K}, "
+        f"step budget {spec.max_steps}): {ms:.4f} ms, longest ray {chain} "
+        f"steps, {ms * 1e3 / chain:.2f} us per step; plain twin "
+        f"{t_plain:.1f} ms")
+    return dict(march=vertex, march_unequal=1.0 - equal)
 
 
 def stage_inputs(inputs):
@@ -462,6 +1023,26 @@ def phase_pass_timing(inputs):
     return shapes, ms_p, abs_e
 
 
+def build_kernels():
+    """Compile every kernel source, one nvcc per source, all at once."""
+    from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(mod.build, verbose=True)
+                for mod in (cuda_sweep, cuda_rays)]
+        for job in jobs:
+            job.result()
+    log(f"[2] K1 (sweep.cu) and K2, K3 (rays.cu) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for mod in (cuda_sweep, cuda_rays):
+        for ln in mod.BUILD_LOG.splitlines():
+            if "Compiling entry" in ln:
+                log(f"    ptxas: {ln.strip()[:200]}")
+            if "registers" in ln or "spill" in ln:
+                log(f"    ptxas: {ln.strip()}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -474,35 +1055,37 @@ def main():
     card = card_line()
     log(f"[1] device {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-
-    from alifmm_tpu_torch.ops import cuda_sweep
-
-    t0 = time.perf_counter()
-    cuda_sweep.build(verbose=True)
-    log(f"[2] K1 built in {time.perf_counter() - t0:.2f} s")
-    for ln in cuda_sweep.BUILD_LOG.splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"    ptxas: {ln.strip()}")
+    build_kernels()
 
     log("[3] K1 against its plain twin")
     worst = phase_kernel_vs_plain(device)
-    log("[4] analytic check at full size")
+    log("[4] ray kernels (K2, K3) against their plain twins")
+    ray_worst = phase_rays_vs_plain(device)
+    log("[5] analytic check at full size")
     phase_analytic(device)
-    log("[5] weld slice (31 fields, 961 rays, float32)")
-    inputs, launches, wall, _ = phase_slice(device)
-    log("[6] K1 warm at every stage shape, beside its bound; one plain pass "
+    log("[6] weld slice (31 fields, 961 rays, float32): direct path, then "
+        "through the facade")
+    inputs, ttfs, (wall, t_solve, t_rays) = phase_slice(device)
+    counts, facade_wall, t_builds = phase_facade(device)
+    log(f"  weld slice warm wall clock: facade {facade_wall:.4f} s (its two "
+        f"model builds {t_builds:.4f} s, the rest "
+        f"{facade_wall - t_builds:.4f} s); direct {wall:.4f} s (solve "
+        f"{t_solve:.4f} s, rays {t_rays:.4f} s)")
+    log("[7] ray kernels at the weld shape: against their twins, and timed "
+        "beside their bounds")
+    weld = phase_ray_kernels_weld(inputs, ttfs, ray_worst, device)
+    log("[8] K1 warm at every stage shape, beside its bound; one plain pass "
         "at the final shape")
     shapes, ms_p, abs_e = phase_pass_timing(inputs)
     final = shapes[-1]
 
     check("jax" not in sys.modules, "jax was imported")
-    print(card, flush=True)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "K1 sweep pass",
         "route": "cuda",
         "source": "alifmm_tpu_torch/csrc/sweep.cu",
         "replaces": "alifmm_tpu/ops/pallas_sweep.py:124",
-        "launches": launches,
+        "launches": counts["sweep_pass"],
         "max_abs_err": max(worst, abs_e),
         "ms": final["ms"],
         "plain_ms": ms_p,
@@ -512,7 +1095,29 @@ def main():
         "cluster": final["cluster"],
         "lanes": final["lanes"],
         "shapes": shapes,
-    }]}), flush=True)
+    }]
+    for key, name, replaces in (
+            ("march", "K2 ray march", "alifmm_tpu/rays.py:728"),
+            ("relax_wave", "K3 relax wave", "alifmm_tpu/rays.py:445"),
+            ("ray_times", "K3 ray times", "alifmm_tpu/rays.py:333")):
+        bound, bound_by = weld["bounds"][key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "alifmm_tpu_torch/csrc/rays.cu",
+            "replaces": replaces,
+            "launches": counts[key],
+            "max_abs_err": ray_worst[key],
+            "ms": weld["ms"][key],
+            "plain_ms": weld["plain"][key],
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    kernels[1]["rays_equal_share"] = 1.0 - ray_worst["march_unequal"]
+    kernels[-1]["max_rel_err"] = ray_worst["ray_times_rel"]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -167,3 +167,17 @@ def test_weld_data_layout():
     scx, scz, src_xy, rec_xy, tidx = weld_data.ray_pairs(sx, sy, pairs)
     assert scx.shape == (31,) and np.all(scz == weld_data.DNX * 423)
     assert src_xy.shape == rec_xy.shape == (961, 2) and tidx.max() == 30
+
+
+@pytest.mark.parametrize("n, kinds", [(1, 1), (500, 7), (4000, 1), (4000, 60)])
+def test_unique_rows_matches_numpy_unique(n, kinds):
+    """grid._unique_rows (the lexsort behind the ray curve tables) gives
+    np.unique(axis=0)'s rows and inverse, signed zeros included."""
+    rng = np.random.default_rng(n + kinds)
+    base = rng.integers(0, 4, (kinds, 5)).astype(float) * 1000.0
+    base[0, 0] = -0.0
+    rows = base[rng.integers(0, kinds, n)]
+    want_rows, want_inv = np.unique(rows, axis=0, return_inverse=True)
+    got_rows, got_inv = tgrid._unique_rows(rows)
+    np.testing.assert_array_equal(got_rows, want_rows)
+    np.testing.assert_array_equal(got_inv, np.reshape(want_inv, -1))

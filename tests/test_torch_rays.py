@@ -1,6 +1,7 @@
-"""PyTorch port, rays: trace_rays(mode="interp") with the production knobs,
-relax_rays, ray_times and the segment integrators against the JAX package
-on the same fields and model (float64)."""
+"""PyTorch port, rays: trace_rays(mode="interp") with the production knobs
+and with the walk scorer, relax_rays, ray_times and the segment
+integrators against the JAX package on the same fields and model
+(float64), and the first-wins selections on inputs built to tie."""
 
 import numpy as np
 import pytest
@@ -31,18 +32,21 @@ def setup():
                           weld_data.DNX, dtype=torch.float64, device="cpu")
     sx, sy, pairs = weld_data.transducers(SHAPE, weld_data.DNX, 3, 15)
     scx, scz, src_xy, rec_xy, tidx = weld_data.ray_pairs(sx, sy, pairs)
-    # receiver fields: straight-ray times at 5790 m/s with a seeded
-    # smooth perturbation (the tracer only needs a field per receiver)
+    return jm, tm, _fields(scx, scz, 7), src_xy, rec_xy, tidx
+
+
+def _fields(scx, scz, seed):
+    """Receiver fields: straight-ray times at 5790 m/s with a seeded
+    smooth perturbation (the tracer only needs a field per receiver)."""
     Z, X = SHAPE
     zz, xx = np.meshgrid(np.arange(Z), np.arange(X), indexing="ij")
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     fields = []
     for cx, cz in zip(scx, scz):
         r = np.hypot(zz - cz / weld_data.DNX, xx - cx / weld_data.DNX)
         bump = 1.0 + 0.05 * np.sin(zz / 7.0 + rng.uniform(0, 6)) * np.cos(xx / 9.0)
         fields.append(weld_data.DNX * r * bump / 5790.0)
-    ttfs = np.stack(fields)
-    return jm, tm, ttfs, src_xy, rec_xy, tidx
+    return np.stack(fields)
 
 
 def _close(got, want, what):
@@ -138,7 +142,112 @@ def test_unported_modes_raise(setup):
     jm, tm, ttfs, src_xy, rec_xy, tidx = setup
     args = (tm, torch.from_numpy(ttfs), torch.from_numpy(tidx),
             torch.from_numpy(src_xy), torch.from_numpy(rec_xy), S)
-    for kw in (dict(mode="grid", quad_vel=3), dict(mode="interp"),
+    for kw in (dict(mode="grid", quad_vel=3),
+               dict(mode="interp", exact_materials=True),
                dict(mode="interp", quad_vel=3, fast_step_scale=12)):
         with pytest.raises(NotImplementedError):
             trays.trace_rays(*args, **kw)
+
+
+@pytest.mark.parametrize("max_cross", [16, 5])
+def test_walk_integrator_matches_jax(setup, max_cross):
+    """_segment_time_walk, also with fewer crossings than the segments
+    have (the walk stops short) and on vertical, horizontal and
+    zero-length segments."""
+    jm, tm, _, _, _, _ = setup
+    rng = np.random.default_rng(5)
+    Z, X = SHAPE
+    n = 96
+    x1 = rng.uniform(0, (X - 1) * S, n)
+    y1 = rng.uniform(0, (Z - 1) * S, n)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    length = rng.uniform(0, 4 * S, n)
+    x2 = x1 + length * np.cos(ang)
+    y2 = y1 + length * np.sin(ang)
+    x2[:8] = x1[:8]
+    y2[8:16] = y1[8:16]
+    x2[16:20], y2[16:20] = x1[16:20], y1[16:20]
+    pts = [x1, y1, x2, y2]
+    for a in pts:
+        a[20:40] = np.round(a[20:40])
+    want = jrays._segment_time_walk(jm, jrays._material_flat(jm),
+                                    *(jnp.asarray(p) for p in pts), S,
+                                    max_cross)
+    got = trays._segment_time_walk(tm, trays._material_flat(tm),
+                                   *(torch.from_numpy(p) for p in pts), S,
+                                   max_cross)
+    _close(got.numpy(), np.asarray(want), "walk")
+    assert np.all(np.asarray(want)[16:20] == 0) and np.asarray(want).max() > 0
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(max_steps=140),
+    dict(step_scale=2, max_cross=8, relax_iters=1, relax_quad=False),
+], ids=["defaults", "two cells a step, exact relaxation"])
+def test_trace_rays_walk_scorer_matches_jax(setup, knobs):
+    """quad_vel=False (the facade's default): candidates scored by the
+    crossing walk, at 3 fine cells per model cell.  JAX's CPU build
+    contracts the walk's multiply-adds, so the two walks differ in their
+    last bits (1e-14 relative); the fields' seed is one where no two
+    candidate minima are that close."""
+    jm, tm, _, src_xy, rec_xy, tidx = setup
+    sx, sy, pairs = weld_data.transducers(SHAPE, weld_data.DNX, 3, 15)
+    ttfs = _fields(*weld_data.ray_pairs(sx, sy, pairs)[:2], seed=8)
+    s = 3
+    src, rec = src_xy / S * s, rec_xy / S * s
+    want = jrays.trace_rays(jm, jnp.asarray(ttfs), jnp.asarray(tidx),
+                            jnp.asarray(src), jnp.asarray(rec), s,
+                            mode="interp", return_reason=True, **knobs)
+    got = trays.trace_rays(tm, torch.from_numpy(ttfs), torch.from_numpy(tidx),
+                           torch.from_numpy(src), torch.from_numpy(rec), s,
+                           mode="interp", return_reason=True, **knobs)
+    wx, wy, wlen, wt, wr = (np.asarray(a) for a in want)
+    gx, gy, glen, gt, gr = (a.numpy() for a in got)
+    np.testing.assert_array_equal(glen, wlen)
+    np.testing.assert_array_equal(gr, wr)
+    _close(gx, wx, "ray_x")
+    _close(gy, wy, "ray_y")
+    _close(gt, wt, "times")
+    assert wlen.min() > 10 and np.all(wt > 0)
+
+
+def test_first_wins_selections_match_jax_on_ties():
+    """argmax over the four plane scores and argmin over the interior
+    minima take the first of equal values, as jnp.argmax / jnp.argmin."""
+    # vec_x == 0 ties scores 1 and 3; vec == 0 ties all four; |vx| == |vy|
+    # ties scores 0 and 2
+    vec_x = np.array([0.0, 0.0, 3.0, -3.0, 2.0, 0.0, 5.0])
+    vec_y = np.array([4.0, 0.0, 3.0, 3.0, -7.0, -1.0, 0.0])
+    r2 = np.sqrt(2.0)
+    rows = [np.abs(vec_x), np.abs(vec_x + vec_y) / r2, np.abs(vec_y),
+            np.abs(vec_x - vec_y) / r2]
+    rows.append(rows[0].copy())  # a fifth row that ties the first
+    want = np.asarray(jnp.argmax(jnp.stack([jnp.asarray(r) for r in rows]),
+                                 axis=0))
+    got = trays._argmax_first([torch.from_numpy(r) for r in rows]).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[1] == 0 and got[0] == 2
+
+    big = 1.0e30
+    val = np.array([
+        [big, 2.0, 2.0, big, 2.0],     # a flat valley: three equal minima
+        [big, big, big, big, big],     # no interior minimum at all
+        [5.0, 1.0, 7.0, 1.0, 1.0],
+        [3.0, 3.0, 3.0, 3.0, 3.0],
+        [9.0, 8.0, 7.0, 6.0, 6.0],
+    ])
+    want = np.asarray(jnp.argmin(jnp.asarray(val), axis=1))
+    got = trays._argmin_first(torch.from_numpy(val)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, [1, 0, 1, 0, 3])
+
+
+def test_plain_steps_are_counted(setup):
+    jm, tm, ttfs, src_xy, rec_xy, tidx = setup
+    before = trays.PLAIN_STEPS
+    out = trays.trace_rays(tm, torch.from_numpy(ttfs), torch.from_numpy(tidx),
+                           torch.from_numpy(src_xy), torch.from_numpy(rec_xy),
+                           S, mode="interp", **RAY_OPTS)
+    steps = trays.PLAIN_STEPS - before
+    assert 0 < steps <= RAY_OPTS["max_steps"]
+    assert steps >= int(out[2].max()) - 2
