@@ -5,14 +5,17 @@ of ``trace_rays(mode="interp")`` with Simpson or crossing-walk candidate
 scoring, even/odd-wave Fermat relaxation (``relax_rays``) and exact
 sorted-crossing time integration (``ray_times``/``segment_time``).
 
-On CUDA tensors the march, each relaxation wave and the ray times run as
+On CUDA tensors the march and the relaxation with the ray times run as
 hand-written kernels (``ops/cuda_rays.py``, ``csrc/rays.cu``): one launch
-marches every ray to its end with no host read per step.  This module
-holds their plain PyTorch twins -- ``march_plain`` (a Python loop over
-steps, vectorised over rays and candidates, one host read per step),
-``relax_wave_plain``, ``ray_times_plain`` and the segment integrators --
-which the wrappers take for CPU tensors and which the kernels are held
-against on the card.  ``PLAIN_STEPS`` counts plain march steps.
+marches every ray to its end with no host read per step, one more relaxes
+every ray and adds up its time.  This module holds their plain PyTorch
+twins -- ``march_plain`` (a Python loop over steps, vectorised over rays
+and candidates, one host read per step), ``relax_and_times_plain`` (the
+waves of ``relax_wave_plain``, then ``ray_times_plain``) and the segment
+integrators -- which the wrappers take for CPU tensors and which the
+kernels are held against on the card.  ``mod180`` states the kernels'
+floor-mod by 180, which gives ``torch.remainder``'s bits.
+``PLAIN_STEPS`` counts plain march steps.
 
 The twins give the same bits on the CPU and on the card: divisors are
 tensors (PyTorch's CUDA division by a Python number multiplies by its
@@ -38,7 +41,7 @@ from .ops import cuda_rays
 __all__ = ["segment_time", "segment_time_quad", "segment_time_quad3",
            "ray_times", "relax_rays", "trace_rays", "MarchSpec",
            "march_spec", "march_plain", "relax_wave_plain", "ray_times_plain",
-           "PLAIN_STEPS"]
+           "relax_and_times_plain", "mod180", "PLAIN_STEPS"]
 
 _BIG = 1.0e30
 _RAD2DEG = 180.0 / math.pi
@@ -95,13 +98,27 @@ def _argmin_first(val):
 
 
 def _material_flat(model: gridlib.Model, exact: bool = False):
-    """(Z*X, 3) per-cell rows (veln, vel_map, unified-curve index) for the
-    segment integrators (the JAX package's fast path)."""
+    """(Z*X, 4) per-cell rows (veln, vel_map, unified-curve index, 0) for
+    the segment integrators (the JAX package's fast path, whose rows are
+    the first three columns): built on the model's device, with no host
+    read, and padded so that a kernel reads a row in one aligned load."""
     if exact or model.ray_curve_idx is None:
         raise NotImplementedError("exact per-crossing Christoffel materials")
     Z, X = model.shape
-    cols = [model.veln, model.vel_map, model.ray_curve_idx.to(model.dtype)]
-    return torch.stack(cols, dim=-1).reshape(Z * X, 3)
+    cols = [model.veln, model.vel_map, model.ray_curve_idx.to(model.dtype),
+            torch.zeros_like(model.veln)]
+    return torch.stack(cols, dim=-1).reshape(Z * X, 4)
+
+
+def mod180(x):
+    """``torch.remainder(x, 180)`` bit for bit, signed zeros included, as
+    the kernels compute it: for |x| < 360 the remainder of fmod is x or
+    x -+ 180 with the sign of x, and |x| - 180 is exact there (Sterbenz),
+    so one compare and one add replace fmod's loop."""
+    ax = x.abs()
+    r = torch.where(ax < 180.0, x, torch.copysign(ax - 180.0, x))
+    r = torch.where(r < 0, r + 180.0, r)
+    return torch.where(ax < 360.0, r, torch.remainder(x, 180.0))
 
 
 def _group_velocity_cell(model, mat_row, eff):
@@ -301,8 +318,8 @@ def ray_times_plain(model, mat_flat, ray_x, ray_y, lengths, subgrid_size,
 def ray_times(model, mat_flat, ray_x, ray_y, lengths, subgrid_size,
               max_cross: int = 16):
     """Travel time along padded ray polylines (R, P): segment i counts when
-    i + 1 < lengths.  A kernel on CUDA tensors, ``ray_times_plain`` on CPU
-    tensors."""
+    i + 1 < lengths.  K3 with no waves on CUDA tensors, ``ray_times_plain``
+    on CPU tensors."""
     return cuda_rays.ray_times(model, mat_flat, ray_x, ray_y, lengths,
                                subgrid_size, max_cross)
 
@@ -361,17 +378,33 @@ def relax_rays(model, mat_flat, ray_x, ray_y, lengths, subgrid_size,
     moves along the perpendicular of its local chord to minimise
     seg(prev, v) + seg(v, next), in odd then even waves (``iters`` times).
     ``quad`` scores with Simpson (3 = 3-point), else the exact integrator.
-    Each wave is one kernel launch on CUDA tensors, ``relax_wave_plain``
-    on CPU tensors."""
-    if ray_x.shape[1] < 3:
+    All waves are one kernel launch on CUDA tensors, ``relax_wave_plain``
+    wave by wave on CPU tensors."""
+    if ray_x.shape[1] < 3 or iters <= 0:
         return ray_x, ray_y
-    h = float(subgrid_size) if span is None else float(span)
-    xs, ys = ray_x, ray_y
-    for parity in [1, 0] * iters:
-        xs, ys = cuda_rays.relax_wave(model, mat_flat, xs, ys, lengths,
-                                      subgrid_size, parity, h, max_cross,
-                                      quad)
+    xs, ys, _ = cuda_rays.relax_and_times(
+        model, mat_flat, ray_x, ray_y, lengths, subgrid_size, 2 * iters,
+        h=span, relax_cross=max_cross, quad=quad, times=False)
     return xs, ys
+
+
+def relax_and_times_plain(model, mat_flat, xs, ys, lengths, subgrid_size,
+                          waves: int = 0, first_parity: int = 1,
+                          h: float | None = None, relax_cross: int = 12,
+                          quad: bool | int = False, times_cross: int = 16,
+                          times: bool = True):
+    """Plain twin of K3: ``waves`` waves of ``relax_wave_plain`` of
+    alternating parity, the first of ``first_parity`` (``h`` defaults to
+    ``subgrid_size``), then, with ``times``, ``ray_times_plain`` of the
+    result.  Returns (xs, ys, times or None)."""
+    h = float(subgrid_size) if h is None else float(h)
+    for w in range(waves):
+        xs, ys = relax_wave_plain(model, mat_flat, xs, ys, lengths,
+                                  subgrid_size, (first_parity + w) % 2, h,
+                                  relax_cross, quad)
+    t = (ray_times_plain(model, mat_flat, xs, ys, lengths, subgrid_size,
+                         times_cross) if times else None)
+    return xs, ys, t
 
 
 def march_plain(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
@@ -636,9 +669,10 @@ def trace_rays(
     picks each ray's field.  Returns (ray_x, ray_y, lengths, times[,
     reason]): padded (R, max_steps + 2) polylines including source and
     receiver.  See the JAX package's trace_rays for the knobs.  Inputs are
-    moved to the model's device; there the march, the relaxation waves and
-    the ray times are kernels (``ops/cuda_rays.py``).  Not ported yet:
-    ``mode="grid"``, ``fast_step_scale`` and ``exact_materials``."""
+    moved to the model's device; there the march is one kernel launch and
+    the relaxation waves with the ray times another
+    (``ops/cuda_rays.py``).  Not ported yet: ``mode="grid"``,
+    ``fast_step_scale`` and ``exact_materials``."""
     if mode != "interp":
         raise NotImplementedError(f"trace_rays mode={mode!r}")
     if fast_step_scale:
@@ -664,11 +698,9 @@ def trace_rays(
         model, mat_flat, rec_ttf, ttf_index, source_xy, receiver_xy, spec)
 
     final_cross = max(-(-max_cross // 2) + 1, spec.k_step + 4)
-    if relax_iters > 0:
-        bx, by = relax_rays(model, mat_flat, bx, by, length, spec.s,
-                            iters=relax_iters, max_cross=final_cross,
-                            quad=relax_quad)
-    times = ray_times(model, mat_flat, bx, by, length, spec.s, final_cross)
+    bx, by, times = cuda_rays.relax_and_times(
+        model, mat_flat, bx, by, length, spec.s, 2 * max(relax_iters, 0),
+        relax_cross=final_cross, quad=relax_quad, times_cross=final_cross)
     if return_reason:
         return bx, by, length, times, reason
     return bx, by, length, times

@@ -10,7 +10,8 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    and power limit;
 2. builds the kernels from ``alifmm_tpu_torch/csrc`` with nvcc, one
    compiler per source, both at once: the sweep kernel K1 (``sweep.cu``)
-   and the ray kernels K2 and K3 (``rays.cu``);
+   and the ray kernels K2 and K3 (``rays.cu``); prints ptxas' registers
+   and spills per kernel;
 3. holds K1 against its plain PyTorch twin on the card, in float64 and
    float32: a min pass and a replace pass on each case of ``PASS_CASES``
    (48 x 56, per-source weld patches of 109 x 109 and 79 x 79, narrow
@@ -20,9 +21,14 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
 4. holds the ray kernels against their plain twins on the card, in
    float64 and float32: the four segment integrators on seeded segments
    over the 48 x 56 and the weld model (``check_segments``), and on
-   48 x 56 the march with the weld's knobs and with the facade's
-   defaults, one relaxation wave of each parity and scorer and the ray
-   times on the marched polylines (``check_march``);
+   48 x 56 the march with the weld's knobs, with the facade's defaults
+   and with Simpson 5 on a narrow plane (32 and 64 lanes a ray, the curve
+   table in shared and in device memory, and through the wrapper
+   ``cuda_rays.march``), then K3 on the marched polylines: one wave of
+   each parity and scorer, and 0, 1 and 2 wave pairs with every scorer
+   followed by the ray times, with the curve table and the polyline in
+   shared and in device memory and through the wrapper
+   ``cuda_rays.relax_and_times`` (``check_march``);
 5. analytic check at full size: homogeneous isotropic 424 x 500, one
    interior source, relative error against r / v;
 6. the weld slice at full size in float32, 31 receiver fields and 961
@@ -30,10 +36,16 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    run, then a timed one), then through the facade
    (``ALI_FMM.find_all_TTF_rays_parallel``; a warm-up call, then a timed
    one with every launch count set to 0 just before it);
-7. the ray kernels at the weld shape: the march, a relaxation wave and
-   the ray times against their twins on the fields just solved (float32
-   and float64), each timed warm (CUDA events) beside its bound and its
-   twin's time;
+7. the ray kernels at the weld shape, with the weld's knobs and with the
+   facade's defaults: K2 and K3 against their twins on the fields just
+   solved (float32 and float64; K3 also on the facade defaults' long
+   polylines, whose float64 copy needs the shared-memory opt-in), each
+   timed warm (CUDA events) as a bare launch with its outputs allocated
+   beforehand and through its wrapper, beside its bound and its twin's
+   time; the march's bound counts the candidates and material samples
+   of the steps the rays took (``plain_march``); the march's step split
+   by part (clock64, a float32 build that only this phase launches) and
+   the blocks resident per SM;
 8. K1 timed warm (CUDA events) on each stage's input of the weld solve
    (31 x 109 x 109 twice, 31 x 79 x 79, 31 x 424 x 500; float32) beside
    its bound, at its own launch shape and at every other one; one plain
@@ -47,6 +59,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import re
 import subprocess
 import sys
 import time
@@ -309,11 +322,18 @@ def phase_kernel_vs_plain(device):
 # Ray kernels (K2, K3) against their plain twins
 # --------------------------------------------------------------------- #
 
-# march knobs by name: (trace_rays knobs, fine cells per model cell)
+# march knobs by name: (trace_rays knobs, fine cells per model cell); on
+# 48 x 56 they give 64 lanes a ray (Simpson 3, K = 15), 32 (walk, K = 21)
+# and 32 (Simpson 5, K = 5)
 MARCH_KNOBS = {
     "weld knobs": (RAY_OPTS, 9),
     "facade defaults": (dict(), 3),
+    "simpson5 narrow plane": (dict(max_cross=8, step_scale=3, plane_dist=2,
+                                   quad_vel=True, cand_stride=10.0,
+                                   max_steps=60), 9),
 }
+# K3's relaxation scorers: (quad, name)
+K3_SCORERS = ((3, "simpson3"), (True, "simpson5"), (0, "exact"))
 RAY_MODELS = ("48x56", "weld")
 # (name, integrator code of ops/cuda_rays.py, crossing budget)
 SEGMENT_KINDS = (("simpson3", 0, 0), ("simpson5", 1, 0), ("walk", 2, 16),
@@ -447,40 +467,74 @@ def compare_march(got, want, model, mat_flat, s, final_cross, dtype, what):
     return vertex, share
 
 
-def compare_polish(model, mat_flat, bx, by, length, s, final_cross, dtype,
-                   what):
-    """One relaxation wave of each parity and scorer, and the ray times,
-    kernels against twins on the polylines (bx, by, length).  Returns the
-    largest differences by kernel: waves in fine cells, times in seconds
-    and relative."""
+def check_k3(model, mat_flat, bx, by, length, s, cross, dtype, what,
+             iters=(0, 1, 2), scorers=K3_SCORERS, single_waves=True):
+    """K3 against its twins on the polylines (bx, by, length): one wave of
+    each parity and scorer (``relax_wave``), then for each of ``iters``
+    that many odd-even wave pairs with every scorer followed by the ray
+    times, with the curve table and the polyline in shared memory and in
+    device memory (bare launches) and through the wrapper
+    ``relax_and_times``, as ``trace_rays`` calls it.  Returns the largest
+    differences: vertices in fine cells, times in seconds and relative."""
     from alifmm_tpu_torch import rays
     from alifmm_tpu_torch.ops import cuda_rays
 
-    worst_wave = 0.0
-    for quad in (3, True, 0):
+    tol = TOL_SEG[dtype]
+    worst = dict(relax_vertices=0.0, relax_times=0.0, relax_times_rel=0.0)
+    for quad, qname in scorers if single_waves else ():
         for parity in (1, 0):
             args = (model, mat_flat, bx, by, length, s, parity, float(s),
-                    final_cross, quad)
+                    cross, quad)
             gx, gy = cuda_rays.relax_wave(*args)
             wx, wy = rays.relax_wave_plain(*args)
             torch.cuda.synchronize()
             check(not torch.equal(wx, bx), "the relaxation wave moved nothing")
             ax, rx = worst_rel(gx, wx)
             ay, ry = worst_rel(gy, wy)
-            log(f"  relax wave {what} quad={int(quad)} parity={parity}: max "
-                f"abs {max(ax, ay):.3e} fine cells, max rel "
-                f"{max(rx, ry):.3e} (tolerance {TOL_SEG[dtype]:.0e})")
-            check(max(rx, ry) <= TOL_SEG[dtype],
-                  f"relax wave {what} quad={quad} differs from its twin")
-            worst_wave = max(worst_wave, ax, ay)
-    gt = cuda_rays.ray_times(model, mat_flat, bx, by, length, s, final_cross)
-    wt = rays.ray_times_plain(model, mat_flat, bx, by, length, s, final_cross)
-    torch.cuda.synchronize()
-    abs_t, rel_t = worst_rel(gt, wt)
-    log(f"  ray times {what}: max abs {abs_t:.3e} s, max rel {rel_t:.3e} "
-        f"(tolerance {TOL_SEG[dtype]:.0e})")
-    check(rel_t <= TOL_SEG[dtype], f"ray times {what} differ from the twin")
-    return dict(relax_wave=worst_wave, ray_times=abs_t, ray_times_rel=rel_t)
+            log(f"  K3 one wave {what} {qname} parity={parity}: max abs "
+                f"{max(ax, ay):.3e} fine cells, max rel {max(rx, ry):.3e} "
+                f"(tolerance {tol:.0e})")
+            check(max(rx, ry) <= tol, f"K3 wave {what} {qname} differs")
+            worst["relax_vertices"] = max(worst["relax_vertices"], ax, ay)
+    for shared in (True, False):
+        where = "shared" if shared else "device"
+        for n in iters:
+            for quad, qname in scorers if n else scorers[:1]:
+                kw = dict(waves=2 * n, relax_cross=cross, quad=quad,
+                          times_cross=cross)
+                p = cuda_rays.prepare_relax_and_times(
+                    model, mat_flat, bx, by, length, s, shared=shared, **kw)
+                plan = p.plan
+                check(plan["curves_smem"] == shared
+                      and plan["poly_smem"] == (shared and n > 0),
+                      f"K3 {what}: memory plan {plan}")
+                p.run()
+                runs = [(f"{where} memory ({plan['smem']} B)", p.out)]
+                if shared:
+                    runs.append(("through the wrapper",
+                                 cuda_rays.relax_and_times(
+                                     model, mat_flat, bx, by, length, s,
+                                     **kw)))
+                wx, wy, wt = rays.relax_and_times_plain(
+                    model, mat_flat, bx, by, length, s, **kw)
+                torch.cuda.synchronize()
+                for how, (gx, gy, gt) in runs:
+                    ax, rx = worst_rel(gx, wx)
+                    ay, ry = worst_rel(gy, wy)
+                    at, rt = worst_rel(gt, wt)
+                    log(f"  K3 {what}, {n} wave pairs"
+                        f"{' ' + qname if n else ''}, then times; {how}: "
+                        f"vertices max abs {max(ax, ay):.3e} fine cells, max "
+                        f"rel {max(rx, ry):.3e}; times max abs {at:.3e} s, "
+                        f"max rel {rt:.3e} (tolerance {tol:.0e})")
+                    check(max(rx, ry, rt) <= tol,
+                          f"K3 {what} {n} pairs {qname} {how} differs")
+                    worst["relax_vertices"] = max(worst["relax_vertices"],
+                                                  ax, ay)
+                    worst["relax_times"] = max(worst["relax_times"], at)
+                    worst["relax_times_rel"] = max(worst["relax_times_rel"],
+                                                   rt)
+    return worst
 
 
 def march_inputs(model, knobs, s, sx, sy, pairs, dnx):
@@ -510,7 +564,6 @@ def check_march(knobs_name, dtype, device):
     against march_plain, then the relaxation waves and ray times on its
     polylines.  Returns the largest differences by kernel."""
     from alifmm_tpu_torch import rays, solver, weld_data
-    from alifmm_tpu_torch.ops import cuda_rays
 
     model = small_model(dtype, device)
     dnx = float(model.dnx)
@@ -521,17 +574,37 @@ def check_march(knobs_name, dtype, device):
     mat_flat, tidx, src, rec, spec, final_cross = march_inputs(
         model, *MARCH_KNOBS[knobs_name], sx, sy, pairs, dnx)
     args = (model, mat_flat, ttfs, tidx, src, rec, spec)
-    got = cuda_rays.march(*args)
     want = rays.march_plain(*args)
-    torch.cuda.synchronize()
     what = f"48x56 {knobs_name} {str(dtype).replace('torch.', '')}"
-    vertex, equal = compare_march(got, want, model, mat_flat, spec.s,
-                                  final_cross, dtype, what)
-    errs = compare_polish(model, mat_flat, *want[:3], spec.s, final_cross,
-                          dtype, what)
-    errs["march"] = vertex
-    errs["march_unequal"] = 1.0 - equal
+    errs = march_vs_twin(args, want, final_cross, dtype, what)
+    merge_worst(errs, check_k3(model, mat_flat, *want[:3], spec.s,
+                               final_cross, dtype, what))
     return errs
+
+
+def march_vs_twin(args, want, final_cross, dtype, what):
+    """K2 with the curve table in shared and in device memory (bare
+    launches) and through the wrapper ``cuda_rays.march``, as
+    ``trace_rays`` calls it, against the twin's result ``want``.  Returns
+    the march's differences by key."""
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    model, mat_flat, spec = args[0], args[1], args[-1]
+    vertex, equal = 0.0, 1.0
+    runs = []
+    for shared in (True, False):
+        p = cuda_rays.prepare_march(*args, shared=shared)
+        check(p.plan["curves_smem"] == shared, f"march plan {p.plan}")
+        p.run()
+        runs.append((f"{p.plan['lanes']} lanes a ray, curves in "
+                     f"{'shared' if shared else 'device'} memory", p.out))
+    runs.append(("through the wrapper", cuda_rays.march(*args)))
+    torch.cuda.synchronize()
+    for how, got in runs:
+        v, e = compare_march(got, want, model, mat_flat, spec.s, final_cross,
+                             dtype, f"{what}, {how}")
+        vertex, equal = max(vertex, v), min(equal, e)
+    return dict(march=vertex, march_unequal=1.0 - equal)
 
 
 def merge_worst(worst, errs):
@@ -632,9 +705,12 @@ def read_counts():
 
 
 def check_counts(counts, what):
-    """The run went through every kernel and through no plain twin."""
-    for name in ("sweep_pass", "march", "relax_wave", "ray_times"):
-        check(counts[name] > 0, f"{what} launched no {name} kernel")
+    """The run went through every kernel, K2 and K3 once each, and
+    through no plain twin."""
+    check(counts["sweep_pass"] > 0, f"{what} launched no sweep_pass kernel")
+    for name in ("march", "relax_times"):
+        check(counts[name] == 1,
+              f"{what} launched {counts[name]} {name} kernels, not 1")
     check(counts["plain_passes"] == 0,
           f"{what} ran the plain sweep pass on the card")
     check(counts["plain_steps"] == 0,
@@ -742,9 +818,9 @@ def phase_facade(device):
           and (rx[-1], ry[-1]) == (fm.isx[31], fm.isz[31]),
           "ray_path(0, 31) does not run from transducer 0 to 31")
     steps = fm.ray_len[top, bottom] - 2
-    log(f"  march 1 launch for 961 rays: steps max {int(steps.max())} mean "
-        f"{steps.mean():.1f}; relax waves {counts['relax_wave']}, ray times "
-        f"{counts['ray_times']}")
+    log(f"  march {counts['march']} launch for 961 rays: steps max "
+        f"{int(steps.max())} mean {steps.mean():.1f}; relaxation and ray "
+        f"times {counts['relax_times']} launch")
     return counts, wall, sum(builds)
 
 
@@ -755,61 +831,134 @@ def roofline(ops, nbytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def ray_bounds(model, mat_flat, ttfs, spec, steps, bx, by, length,
-               final_cross):
-    """Bounds of the three ray kernels for this run's rays.
+def walk_crossings(x1, y1, x2, y2, s, in_cross):
+    """Crossings the walk scorer takes on the segments (x1, y1) -> (x2, y2)
+    in fine-grid coordinates before both axes are done (``seg_walk`` in
+    csrc/rays.cu): the cell boundaries round(p1) +- (k + 1/2) it crosses
+    on each axis, plus the step to the end, at most ``in_cross``."""
+    def axis(p1, p2):
+        r = torch.round(p1)
+        n = torch.where(p1 < p2, torch.floor(p2 - r - 0.5),
+                        torch.floor(r - 0.5 - p2)) + 1
+        return n.clamp_min(0)
+
+    x1, y1, x2, y2 = x1 / s, y1 / s, x2 / s, y2 / s
+    return (axis(x1, x2) + axis(y1, y2) + 1).clamp_max(in_cross)
+
+
+def plain_march(args):
+    """The twin's march (``rays.march_plain``) on ``args``, timed on the
+    host clock, with the work K2 does on the same rays counted from the
+    candidates the twin scores.  At each step a ray takes, the kernel
+    scores the plane's first n_k of K candidates (the twin clamps the
+    rest onto the last one, so they repeat it), each with its material
+    samples: N for Simpson N; for the walk the crossings it takes
+    (``walk_crossings``; past kWalkChunk = 8 it needs a second round).
+    Returns (ms, result, work)."""
+    from alifmm_tpu_torch import rays
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    spec = args[-1]
+    name = {cuda_rays.WALK: "_segment_time_walk",
+            cuda_rays.SIMPSON3: "segment_time_quad3",
+            cuda_rays.SIMPSON5: "segment_time_quad"}[spec.scorer]
+    scorer, calls = getattr(rays, name), []
+
+    def recording(model, mat_flat, x1, y1, x2, y2, *rest):
+        calls.append((x1, y1, x2, y2))
+        return scorer(model, mat_flat, x1, y1, x2, y2, *rest)
+
+    setattr(rays, name, recording)
+    try:
+        ms, want = time_host(lambda: rays.march_plain(*args))
+    finally:
+        setattr(rays, name, scorer)
+    steps = want[4]
+    total = torch.zeros(5, dtype=torch.float64, device=steps.device)
+    for k, (x1, y1, x2, y2) in enumerate(calls):
+        live = torch.ones(x2.shape, dtype=torch.bool, device=x2.device)
+        live[:, 1:] = (x2[:, 1:] != x2[:, :-1]) | (y2[:, 1:] != y2[:, :-1])
+        live &= (steps > k)[:, None]
+        if spec.scorer == cuda_rays.WALK:
+            n = walk_crossings(x1, y1, x2, y2, spec.s, spec.in_cross)
+        else:
+            n = torch.full_like(x2, 3 if spec.scorer == cuda_rays.SIMPSON3
+                                else 5)
+        n_k = live.sum(1)
+        total += torch.stack([
+            (n_k > 0).sum(), n_k.sum(), (n_k - 2).clamp_min(0).sum(),
+            torch.where(live, n, 0).sum(), (live & (n > 8)).sum()]).double()
+    work = dict(zip(("steps", "candidates", "columns", "samples",
+                     "second_round"), (int(v) for v in total.tolist())))
+    check(work["steps"] == int(steps.sum()), "march work: steps miscounted")
+    log(f"  march twin {ms:.1f} ms; the kernel's work: {work['steps']} "
+        f"steps, {work['candidates']} candidates scored "
+        f"({work['candidates'] / work['steps']:.2f} a step, K = {spec.K}), "
+        f"{work['samples']} material samples "
+        f"({work['samples'] / work['candidates']:.3f} a candidate); "
+        f"candidates past 8 crossings: {work['second_round']}")
+    return ms, want, work
+
+
+def ray_bounds(model, mat_flat, ttfs, spec, work, bx, by, length,
+               final_cross, waves, relax_samples=3):
+    """Bounds of K2 and K3 for this run's rays.
 
     Bytes, each counted once and only where this run's rays go: the
     march's field cells are its steps x the 2 x ``span`` cells that the
     bilinear samples of one plane touch (``span``: the model cells along a
     plane of K candidates ``stride`` fine cells apart), at most the whole
     stack; its material rows are its steps x the cells of the fan from the
-    point to the plane (``span`` / 2 for each sample fraction or plane
-    distance, whichever is fewer); the waves and the ray times read the
-    rows of the cells their polylines cross; every kernel reads the curve
-    table, its per-ray vectors and polylines and writes its outputs.
+    point to the plane (``span`` / 2 for each sample a candidate takes on
+    average or each plane distance, whichever is fewer); K3 reads the
+    rows of the cells its polylines cross; both read the curve table,
+    their per-ray vectors and polylines and write their outputs.
 
-    Operations, counted from the twins: the march's steps x (plane
-    geometry + K candidates x (field sample + segment set-up + its
-    material samples) + K - 2 interior columns); a wave's moving vertices
-    x 6 Simpson segments; the ray times' real segments x set-up plus their
-    crossing intervals x one material sample."""
+    Operations, counted from the twins and the march's ``work``
+    (``plain_march``): each step's plane geometry, each scored
+    candidate's field sample and segment set-up, each material sample,
+    and n_k - 2 interior columns a step; K3 is the sum of its ``waves``
+    waves (each moving vertex scores 6 segments of ``relax_samples``
+    material samples) and its ray times (real segments x set-up +
+    crossing intervals x one material sample)."""
     item = ttfs.element_size()
     R, P = bx.shape
     K = spec.K
     row = mat_flat.shape[1] * item
     all_rows = mat_flat.shape[0] * row
     curves = model.ray_curves.numel() * item
-    n_steps = int(steps.sum())
-    n_samples = {0: 3, 1: 5, 2: spec.in_cross}[spec.scorer]
+    n_steps = work["steps"]
     span = int((K - 1) * spec.stride / spec.s) + 2
-    fan = min(n_samples, spec.plane_dist + 1) * span // 2 + 1
-    seg_ops = OPS_SEGMENT + n_samples * OPS_SAMPLE
-    march_ops = n_steps * (
-        OPS_PLANE + K * (OPS_BILINEAR + seg_ops) + (K - 2) * OPS_COLUMN)
+    fan = (min(-(-work["samples"] // work["candidates"]),
+               spec.plane_dist + 1) * span // 2 + 1)
+    march_ops = (n_steps * OPS_PLANE + work["columns"] * OPS_COLUMN
+                 + work["candidates"] * (OPS_BILINEAR + OPS_SEGMENT)
+                 + work["samples"] * OPS_SAMPLE)
     march_bytes = (min(ttfs.numel(), n_steps * 2 * span) * item
                    + min(all_rows, n_steps * fan * row) + curves
                    + (4 * R + 2 * R * P) * item + 4 * R * 8)
     vidx = torch.arange(P, device=bx.device)[None, :]
-    moving = int(((vidx % 2 == 1) & (vidx >= 1)
-                  & (vidx < (length - 1)[:, None])).sum())
+    moving = 0
+    for w in range(waves):
+        moving += int(((vidx % 2 == (1 + w) % 2) & (vidx >= 1)
+                       & (vidx <= P - 2) & (vidx < (length - 1)[:, None])
+                       ).sum())
     real = (vidx[:, :-1] + 1) < length[:, None]
     cross = ((bx[:, 1:] - bx[:, :-1]).abs()
              + (by[:, 1:] - by[:, :-1]).abs()) / spec.s + 1
     crossed_rows = min(all_rows, int(cross[real].sum()) * row)
-    wave_ops = moving * (6 * (OPS_SEGMENT + 3 * OPS_SAMPLE) + 40)
-    wave_bytes = crossed_rows + curves + 4 * R * P * item + R * 8
     intervals = float(cross.clamp_max(2 * final_cross + 1)[real].sum())
-    times_ops = int(real.sum()) * OPS_SEGMENT + intervals * OPS_SAMPLE
-    times_bytes = crossed_rows + curves + (2 * R * P + R) * item + R * 8
+    k3_ops = (moving * (6 * (OPS_SEGMENT + relax_samples * OPS_SAMPLE) + 40)
+              + int(real.sum()) * OPS_SEGMENT + intervals * OPS_SAMPLE)
+    k3_bytes = (crossed_rows + curves + (2 * R * P * (2 if waves else 1)
+                                         + R) * item + R * 8)
     log(f"  bounds: march {n_steps} steps, {2 * span} field cells and {fan} "
         f"material rows a step, {march_bytes / 1e6:.2f} MB and "
-        f"{march_ops / 1e9:.3f} Gop; wave {wave_bytes / 1e6:.2f} MB and "
-        f"{wave_ops / 1e9:.4f} Gop; ray times {times_bytes / 1e6:.2f} MB "
-        f"and {times_ops / 1e9:.4f} Gop")
+        f"{march_ops / 1e9:.3f} Gop; K3 {waves} waves ({moving} vertex "
+        f"moves) and the times, {k3_bytes / 1e6:.2f} MB and "
+        f"{k3_ops / 1e9:.4f} Gop")
     return dict(march=roofline(march_ops, march_bytes),
-                relax_wave=roofline(wave_ops, wave_bytes),
-                ray_times=roofline(times_ops, times_bytes))
+                relax_times=roofline(k3_ops, k3_bytes))
 
 
 def time_events(fn, n=10):
@@ -834,13 +983,88 @@ def time_host(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def time_march(args, n):
+    """K2 on ``args`` (float32), warm: the bare launch with its outputs
+    allocated beforehand and the call through its wrapper (CUDA events
+    over n calls), the longest ray's steps, the step split by part (the
+    clock64 build, on the longest ray), the blocks resident per SM and a
+    march of every 8th ray."""
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    p = cuda_rays.prepare_march(*args)
+    bare = time_events(p.run, n)
+    wrapper = time_events(lambda: cuda_rays.march(*args), n)
+    steps = p.out[4]
+    chain = int(steps.max())
+    pp = cuda_rays.prepare_march(*args, profile=True)
+    pp.run()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(pp.out[:5], p.out)),
+          "the march's profiling build marched otherwise")
+    cyc = pp.out[5][int(torch.argmax(steps))].double()
+    split = dict(zip(("scoring", "reduction", "rest"),
+                     (cyc / cyc.sum()).tolist()))
+    warps = cuda_rays.occupancy(p, args[-1].scorer, torch.float32) * 4
+    us = bare * 1e3 / chain
+    # the same march over every 8th ray, fewer than one block an SM: what
+    # a step takes when its warps do not share the SM's issue slots
+    few = [a[::8].contiguous() for a in args[3:6]]
+    pf = cuda_rays.prepare_march(*args[:3], *few, args[-1])
+    us_alone = time_events(pf.run, n) * 1e3 / int(pf.out[4].max())
+    log(f"  K2 {bare:.4f} ms bare, {wrapper:.4f} ms through the wrapper, for "
+        f"{args[3].shape[0]} rays (K = {args[-1].K}, {p.plan['lanes']} lanes "
+        f"a ray, curves in {'shared' if p.plan['curves_smem'] else 'device'}"
+        f" memory, {p.plan['smem']} B); the longest ray takes {chain} "
+        f"dependent steps: {us:.3f} us a step, of which scoring "
+        f"{split['scoring']:.3f}, reduction {split['reduction']:.3f}, the "
+        f"rest {split['rest']:.3f} (clock64 on that ray: "
+        f"{us * split['scoring']:.3f} / {us * split['reduction']:.3f} / "
+        f"{us * split['rest']:.3f} us); all rays {int(steps.sum())} steps; "
+        f"{warps} warps resident per SM; every 8th ray alone: "
+        f"{us_alone:.3f} us a step")
+    return dict(ms=bare, wrapper_ms=wrapper, chain=chain, us_per_step=us,
+                us_per_step_few_rays=us_alone, step_split=split,
+                lanes=p.plan["lanes"], warps_per_sm=warps,
+                steps=int(steps.sum()))
+
+
+def time_k3(model, mat_flat, bx, by, length, s, kw, n=10):
+    """K3 on these polylines (float32), warm: the bare launch and the call
+    through its wrapper (CUDA events over n calls), the composed twin's
+    time and the blocks resident per SM."""
+    from alifmm_tpu_torch import rays
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    args = (model, mat_flat, bx, by, length, s)
+    p = cuda_rays.prepare_relax_and_times(*args, **kw)
+    bare = time_events(p.run, n)
+    wrapper = time_events(lambda: cuda_rays.relax_and_times(*args, **kw), n)
+    twin = time_host(lambda: rays.relax_and_times_plain(*args, **kw))[0]
+    warps = cuda_rays.occupancy(p, cuda_rays._quad_scorer(kw["quad"]),
+                                torch.float32) * 4
+    log(f"  K3 ({kw['waves']} waves, then the times; P = {bx.shape[1]}; "
+        f"polyline in {'shared' if p.plan['poly_smem'] else 'device'} "
+        f"memory, {p.plan['smem']} B): {bare:.4f} ms bare, {wrapper:.4f} ms "
+        f"through the wrapper; plain twin {twin:.2f} ms; {warps} warps "
+        f"resident per SM")
+    return dict(ms=bare, wrapper_ms=wrapper, plain_ms=twin,
+                warps_per_sm=warps)
+
+
+def with_bound(timed, bound):
+    b, by_what = bound
+    timed.update(bound_ms=b, bound_by=by_what, share=b / timed["ms"])
+    log(f"    bound {b:.5f} ms ({by_what}), share of the bare time "
+        f"{b / timed['ms']:.4f}; library call: none ({NO_LIBRARY})")
+    return timed
+
+
 def phase_ray_kernels_weld(inputs, ttfs, worst, device):
     """The ray kernels at the weld shape (961 rays through the 31 fields
     just solved): against their twins in float32 and float64 (the largest
     differences go into ``worst``), and timed warm beside their bounds
-    and their twins."""
-    from alifmm_tpu_torch import rays, weld_data
-    from alifmm_tpu_torch.ops import cuda_rays
+    and their twins, with the weld's knobs and the facade's defaults."""
+    from alifmm_tpu_torch import weld_data
 
     veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
     out = {}
@@ -851,74 +1075,66 @@ def phase_ray_kernels_weld(inputs, ttfs, worst, device):
         mat_flat, tidx, src, rec, spec, final_cross = march_inputs(
             model, *MARCH_KNOBS["weld knobs"], sx, sy, pairs, dnx)
         args = (model, mat_flat, fields, tidx, src, rec, spec)
-        got = cuda_rays.march(*args)
-        ms_twin, want = time_host(lambda: rays.march_plain(*args))
+        ms_twin, want, work = plain_march(args)
         what = f"weld {str(dtype).replace('torch.', '')}"
-        vertex, equal = compare_march(got, want, model, mat_flat, spec.s,
-                                      final_cross, dtype, what)
-        errs = compare_polish(model, mat_flat, *want[:3], spec.s,
-                              final_cross, dtype, what)
-        errs["march"] = vertex
-        errs["march_unequal"] = 1.0 - equal
-        merge_worst(worst, errs)
+        merge_worst(worst, march_vs_twin(args, want, final_cross, dtype,
+                                         what))
+        merge_worst(worst, check_k3(model, mat_flat, *want[:3], spec.s,
+                                    final_cross, dtype, what))
         if dtype != torch.float32:
             continue
-        bx, by, length, _, steps = got
-        h = float(spec.s)
-        wave_args = (model, mat_flat, bx, by, length, spec.s, 1, h,
-                     final_cross, RAY_OPTS["relax_quad"])
-        times_args = (model, mat_flat, bx, by, length, spec.s, final_cross)
-        ms = dict(
-            march=time_events(lambda: cuda_rays.march(*args)),
-            relax_wave=time_events(lambda: cuda_rays.relax_wave(*wave_args)),
-            ray_times=time_events(lambda: cuda_rays.ray_times(*times_args)))
-        plain = dict(
-            march=ms_twin,
-            relax_wave=time_host(
-                lambda: rays.relax_wave_plain(*wave_args))[0],
-            ray_times=time_host(
-                lambda: rays.ray_times_plain(*times_args))[0])
-        bounds = ray_bounds(model, mat_flat, fields, spec, steps, bx, by,
-                            length, final_cross)
-        chain = int(steps.max())
-        log(f"  K2 march {ms['march']:.4f} ms for 961 rays (K = {spec.K}); "
-            f"the longest ray takes {chain} dependent steps: "
-            f"{ms['march'] * 1e3 / chain:.2f} us per step; all rays "
-            f"{int(steps.sum())} steps")
-        for name in ("march", "relax_wave", "ray_times"):
-            b, by_what = bounds[name]
-            log(f"  {name}: kernel {ms[name]:.4f} ms, plain twin "
-                f"{plain[name]:.2f} ms, bound {b:.5f} ms ({by_what}), share "
-                f"{b / ms[name]:.4f}; library call: none ({NO_LIBRARY})")
-        out["ms"], out["plain"], out["bounds"] = ms, plain, bounds
-    merge_worst(worst, check_default_march(inputs[0], ttfs,
-                                           (sx, sy, pairs, dnx)))
+        log(f"  curve table {tuple(model.ray_curves.shape)} "
+            f"({model.ray_curves.numel() * 4} B in float32)")
+        k2 = time_march(args, 10)
+        k2["plain_ms"] = ms_twin
+        bx, by, length = want[:3]
+        waves = 2 * RAY_OPTS["relax_iters"]
+        bounds = ray_bounds(model, mat_flat, fields, spec, work, bx, by,
+                            length, final_cross, waves)
+        out["march"] = with_bound(k2, bounds["march"])
+        kw = dict(waves=waves, relax_cross=final_cross,
+                  quad=RAY_OPTS["relax_quad"], times_cross=final_cross)
+        out["relax_times"] = with_bound(
+            time_k3(model, mat_flat, bx, by, length, spec.s, kw),
+            bounds["relax_times"])
+    out["facade defaults"] = check_default_march(inputs[0], ttfs, worst,
+                                                 (sx, sy, pairs, dnx))
     return out
 
 
-def check_default_march(model, ttfs, geometry):
-    """The march with the facade's default knobs (crossing-walk scorer,
-    one model cell per step, 57 candidates, 9 fine cells per model cell)
-    at the weld shape, float32: K2 against its twin, and its time.
-    Returns the march's differences as ``check_march`` does."""
+def check_default_march(model, ttfs, worst, geometry):
+    """The facade's default knobs (crossing-walk scorer, one model cell per
+    step, 57 candidates, 9 fine cells per model cell) at the weld shape,
+    float32: K2 against its twin and timed beside its bound; K3 with no
+    waves (the facade's default) timed beside its bound; and K3 with one
+    wave pair against its twin on these long polylines in float32 and
+    float64 (whose polyline needs the shared-memory opt-in).  The
+    differences go into ``worst``."""
     from alifmm_tpu_torch import rays
-    from alifmm_tpu_torch.ops import cuda_rays
 
     mat_flat, tidx, src, rec, spec, final_cross = march_inputs(
         model, dict(), 9, *geometry)
     args = (model, mat_flat, ttfs, tidx, src, rec, spec)
-    got = cuda_rays.march(*args)
-    t_plain, want = time_host(lambda: rays.march_plain(*args))
-    vertex, equal = compare_march(got, want, model, mat_flat, spec.s,
-                                  final_cross, torch.float32,
-                                  "weld, facade defaults, float32")
-    ms = time_events(lambda: cuda_rays.march(*args), n=3)
-    chain = int(got[4].max())
-    log(f"  K2 march with the facade's defaults (walk scorer, K = {spec.K}, "
-        f"step budget {spec.max_steps}): {ms:.4f} ms, longest ray {chain} "
-        f"steps, {ms * 1e3 / chain:.2f} us per step; plain twin "
-        f"{t_plain:.1f} ms")
-    return dict(march=vertex, march_unequal=1.0 - equal)
+    t_plain, want, work = plain_march(args)
+    merge_worst(worst, march_vs_twin(args, want, final_cross, torch.float32,
+                                     "weld, facade defaults, float32"))
+    k2 = time_march(args, 3)
+    k2["plain_ms"] = t_plain
+    bx, by, length = want[:3]
+    bounds = ray_bounds(model, mat_flat, ttfs, spec, work, bx, by, length,
+                        final_cross, 0)
+    kw = dict(waves=0, relax_cross=final_cross, quad=True,
+              times_cross=final_cross)
+    k3 = time_k3(model, mat_flat, bx, by, length, spec.s, kw)
+    model64 = ray_model("weld", torch.float64, model.device)
+    for m, dt in ((model, torch.float32), (model64, torch.float64)):
+        merge_worst(worst, check_k3(
+            m, rays._material_flat(m), bx.to(dt), by.to(dt), length,
+            spec.s, final_cross, dt,
+            f"weld, facade defaults' polylines, {str(dt)[6:]}", iters=(1,),
+            scorers=K3_SCORERS[:1], single_waves=False))
+    return dict(march=with_bound(k2, bounds["march"]),
+                relax_times=with_bound(k3, bounds["relax_times"]))
 
 
 def stage_inputs(inputs):
@@ -1023,8 +1239,41 @@ def phase_pass_timing(inputs):
     return shapes, ms_p, abs_e
 
 
+SCORER_NAMES = {0: "simpson3", 1: "simpson5", 2: "walk", 3: "exact"}
+
+
+def ptxas_summary(report):
+    """{kernel: (registers, spill bytes)} from ``-Xptxas -v`` output; ray
+    kernels by name, type and scorer (``march_kernel<f,walk,0>``: float,
+    the walk, no profiling), others by their mangled name."""
+    out, name, spill = {}, None, 0
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spill = m.group(1), 0
+            k = re.search(r"([a-z_]+_kernel)I([fd])((?:L[ib]\d+E)*)E", name)
+            if k:
+                ints = [int(v) for v in
+                        re.findall(r"L[ib](\d+)E", k.group(3))]
+                if ints and k.group(1) in ("march_kernel",
+                                           "relax_times_kernel"):
+                    ints[0] = SCORER_NAMES[ints[0]]
+                args = ",".join([k.group(2)] + [str(i) for i in ints])
+                name = f"{k.group(1)}<{args}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = (int(m.group(1)), spill)
+            name = None
+    return out
+
+
 def build_kernels():
-    """Compile every kernel source, one nvcc per source, all at once."""
+    """Compile every kernel source, one nvcc per source, all at once;
+    returns ptxas' registers and spills by kernel."""
     from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep
 
     t0 = time.perf_counter()
@@ -1035,12 +1284,34 @@ def build_kernels():
             job.result()
     log(f"[2] K1 (sweep.cu) and K2, K3 (rays.cu) built in "
         f"{time.perf_counter() - t0:.2f} s")
+    regs = {}
     for mod in (cuda_sweep, cuda_rays):
-        for ln in mod.BUILD_LOG.splitlines():
-            if "Compiling entry" in ln:
-                log(f"    ptxas: {ln.strip()[:200]}")
-            if "registers" in ln or "spill" in ln:
-                log(f"    ptxas: {ln.strip()}")
+        regs.update(ptxas_summary(mod.BUILD_LOG))
+    for name, (n, spill) in regs.items():
+        log(f"    ptxas: {name[:120]}: {n} registers, {spill} bytes of "
+            f"spill")
+    return regs
+
+
+def ray_kernel_entry(name, replaces, launches, errs, timed, defaults, regs,
+                     stem):
+    """One ray kernel's object in the kernels line: the weld knobs' bare
+    time as ``ms``, the facade defaults' figures beside it."""
+    entry = {
+        "name": name, "route": "cuda",
+        "source": "alifmm_tpu_torch/csrc/rays.cu", "replaces": replaces,
+        "launches": launches, **errs,
+        **{k: timed[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        **{k: v for k, v in timed.items()
+           if k not in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "facade_defaults": defaults,
+        "registers_f32": {k: v[0] for k, v in regs.items()
+                          if k.startswith(stem + "<f")},
+        "spill_bytes_f32": max([v[1] for k, v in regs.items()
+                                if k.startswith(stem + "<f")] or [0]),
+    }
+    return entry
 
 
 def main():
@@ -1055,7 +1326,7 @@ def main():
     card = card_line()
     log(f"[1] device {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    build_kernels()
+    regs = build_kernels()
 
     log("[3] K1 against its plain twin")
     worst = phase_kernel_vs_plain(device)
@@ -1096,26 +1367,21 @@ def main():
         "lanes": final["lanes"],
         "shapes": shapes,
     }]
-    for key, name, replaces in (
-            ("march", "K2 ray march", "alifmm_tpu/rays.py:728"),
-            ("relax_wave", "K3 relax wave", "alifmm_tpu/rays.py:445"),
-            ("ray_times", "K3 ray times", "alifmm_tpu/rays.py:333")):
-        bound, bound_by = weld["bounds"][key]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "alifmm_tpu_torch/csrc/rays.cu",
-            "replaces": replaces,
-            "launches": counts[key],
-            "max_abs_err": ray_worst[key],
-            "ms": weld["ms"][key],
-            "plain_ms": weld["plain"][key],
-            "bound_ms": bound,
-            "bound_by": bound_by,
-            "library_ms": None,
-        })
-    kernels[1]["rays_equal_share"] = 1.0 - ray_worst["march_unequal"]
-    kernels[-1]["max_rel_err"] = ray_worst["ray_times_rel"]
+    defaults = weld["facade defaults"]
+    kernels.append(ray_kernel_entry(
+        "K2 ray march", "alifmm_tpu/rays.py:728", counts["march"],
+        dict(max_abs_err=ray_worst["march"],
+             rays_equal_share=1.0 - ray_worst["march_unequal"]),
+        weld["march"], defaults["march"], regs, "march_kernel"))
+    kernels.append(ray_kernel_entry(
+        "K3 relaxation waves and ray times", "alifmm_tpu/rays.py:445",
+        counts["relax_times"],
+        dict(max_abs_err=ray_worst["relax_vertices"],
+             max_abs_err_times=ray_worst["relax_times"],
+             max_rel_err_times=ray_worst["relax_times_rel"],
+             also_replaces="alifmm_tpu/rays.py:333"),
+        weld["relax_times"], defaults["relax_times"], regs,
+        "relax_times_kernel"))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,9 +37,10 @@ def test_segment_integrators_match_plain_twins(device, dtype, model):
 @pytest.mark.parametrize("knobs", sorted(chip_smoke.MARCH_KNOBS))
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_march_relax_and_times_match_plain_twins(device, dtype, knobs):
-    """K2 on 48 x 56 with the weld's knobs and with the facade's defaults,
-    then one relaxation wave of each parity and scorer and the ray times
-    on the marched polylines."""
+    """K2 on 48 x 56 with each of ``chip_smoke.MARCH_KNOBS``, then K3 on
+    the marched polylines: one relaxation wave of each parity and scorer,
+    and 0, 1 and 2 wave pairs followed by the ray times, with the tables
+    in shared and in device memory."""
     chip_smoke.check_march(knobs, dtype, device)
 
 

@@ -1,7 +1,8 @@
 """PyTorch port, rays: trace_rays(mode="interp") with the production knobs
-and with the walk scorer, relax_rays, ray_times and the segment
-integrators against the JAX package on the same fields and model
-(float64), and the first-wins selections on inputs built to tie."""
+and with the walk scorer, relax_rays, ray_times, K3's composed twin and the
+segment integrators against the JAX package on the same fields and model
+(float64), the first-wins selections on inputs built to tie, the in-place
+waves on which K3 rests, and the kernels' floor-mod by 180."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ from alifmm_tpu import rays as jrays
 from alifmm_tpu_torch import grid as tgrid
 from alifmm_tpu_torch import rays as trays
 from alifmm_tpu_torch import weld_data
+from alifmm_tpu_torch.ops import cuda_rays
 
 RTOL = 1e-9  # same float64 operations; sums may reassociate (ulps)
 S = weld_data.SUBGRID
@@ -117,6 +119,101 @@ def test_ray_times_matches_jax(setup):
                           torch.from_numpy(y), torch.from_numpy(lengths), S,
                           13)
     _close(got.numpy(), np.asarray(want), "ray times")
+
+
+@pytest.mark.parametrize("quad", [3, 0], ids=["simpson3", "exact"])
+@pytest.mark.parametrize("iters", [0, 1, 2])
+def test_relax_and_times_matches_jax(setup, iters, quad):
+    """K3's plain twin (``iters`` odd-even wave pairs, then the ray times,
+    through the wrapper's CPU path) against JAX's relax_rays, then
+    ray_times."""
+    jm, tm, _, src_xy, rec_xy, _ = setup
+    x, y, lengths = _polylines(src_xy, rec_xy, 12, seed=20 + iters)
+    jmf = jrays._material_flat(jm)
+    wx, wy = jnp.asarray(x), jnp.asarray(y)
+    if iters:
+        wx, wy = jrays.relax_rays(jm, jmf, wx, wy, jnp.asarray(lengths), S,
+                                  iters=iters, max_cross=13, quad=quad,
+                                  chunk=10)
+    wt = jrays.ray_times(jm, jmf, wx, wy, jnp.asarray(lengths), S, 9,
+                         chunk=11)
+    gx, gy, gt = cuda_rays.relax_and_times(
+        tm, trays._material_flat(tm), torch.from_numpy(x),
+        torch.from_numpy(y), torch.from_numpy(lengths), S, 2 * iters,
+        relax_cross=13, quad=quad, times_cross=9)
+    _close(gx.numpy(), np.asarray(wx), "relaxed x")
+    _close(gy.numpy(), np.asarray(wy), "relaxed y")
+    _close(gt.numpy(), np.asarray(wt), "ray times")
+    assert np.any(np.asarray(wx) != x) == (iters > 0)
+
+
+def _wave_in_place(tm, tmf, xs, ys, lengths, parity, order, quad):
+    """One wave run in place, one vertex at a time in ``order``: each
+    vertex moves as the map would move it, but reads the neighbours as the
+    vertices before it in ``order`` left them (what one block running a
+    wave in place may see).  ``parity`` None moves every vertex."""
+    xs, ys = xs.clone(), ys.clone()
+    for v in order:
+        p = v % 2 if parity is None else parity
+        if v % 2 != p:
+            continue
+        mx, my = trays.relax_wave_plain(tm, tmf, xs, ys, lengths, S, p,
+                                        float(S), 13, quad)
+        xs[:, v], ys[:, v] = mx[:, v], my[:, v]
+    return xs, ys
+
+
+@pytest.mark.parametrize("quad", [3, 0], ids=["simpson3", "exact"])
+def test_waves_in_place_equal_the_map(setup, quad):
+    """A wave moves vertices of one parity using their neighbours, which
+    are of the other parity and stay put, so K3 may run the waves of
+    ``relax_rays`` in place: vertex by vertex in reversed order this
+    gives the bits of the map.  Moving both parities in one wave does
+    not."""
+    _, tm, _, src_xy, rec_xy, _ = setup
+    tmf = trays._material_flat(tm)
+    x, y, lengths = _polylines(src_xy, rec_xy, 12, seed=31)
+    xs, ys = torch.from_numpy(x), torch.from_numpy(y)
+    lengths = torch.from_numpy(lengths)
+    order = range(10, 0, -1)
+    mx, my, ix, iy = xs, ys, xs, ys
+    for parity in [1, 0] * 2:
+        mx, my = trays.relax_wave_plain(tm, tmf, mx, my, lengths, S, parity,
+                                        float(S), 13, quad)
+        ix, iy = _wave_in_place(tm, tmf, ix, iy, lengths, parity, order,
+                                quad)
+        assert torch.equal(ix, mx) and torch.equal(iy, my)
+    assert not torch.equal(mx, xs)
+    bx, by = _wave_in_place(tm, tmf, xs, ys, lengths, None, order, quad)
+    wx, wy = trays.relax_wave_plain(tm, tmf, xs, ys, lengths, S, 1, float(S),
+                                    13, quad)
+    wx, wy = trays.relax_wave_plain(tm, tmf, wx, wy, lengths, S, 0, float(S),
+                                    13, quad)
+    assert not (torch.equal(bx, wx) and torch.equal(by, wy))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mod180_equals_remainder_bit_for_bit(dtype):
+    """The kernels' floor-mod by 180 (one compare and one add below 360 in
+    magnitude, fmod beyond) is torch.remainder(x, 180) in every bit,
+    signed zeros included (-180 and -360 give -0)."""
+    special = torch.tensor([0.0, 180.0, 359.99, 360.0, 360.01, 540.0, 720.0,
+                            179.99999, 90.0, 1e-30, 1e6, float("inf"),
+                            float("nan")], dtype=dtype)
+    special = torch.cat([special, -special])
+    up = torch.nextafter(special, torch.full_like(special, float("inf")))
+    down = torch.nextafter(special, torch.full_like(special, -float("inf")))
+    rng = np.random.default_rng(180)
+    seeded = torch.from_numpy(rng.uniform(-1000.0, 1000.0, 100_000)).to(dtype)
+    x = torch.cat([special, up, down, seeded])
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    got = trays.mod180(x).view(bits)
+    want = torch.remainder(x, 180.0).view(bits)
+    nan = torch.isnan(x) | torch.isinf(x)
+    assert torch.equal(got[~nan], want[~nan])
+    assert bool(torch.isnan(trays.mod180(x)[nan]).all())
+    zero = trays.mod180(torch.tensor([-180.0, -360.0, 180.0], dtype=dtype))
+    assert torch.equal(torch.signbit(zero), torch.tensor([True, True, False]))
 
 
 def test_segment_integrators_match_jax(setup):
