@@ -13,9 +13,14 @@ batch replaces the process pool.
 ``device=None`` builds every model on the CUDA card and raises on a host
 without one; ``device="cpu"`` runs the plain PyTorch twins on the CPU.
 
+``ttf_mode`` selects the ray tracer's fields: ``"interp"`` (the default)
+solves the receiver fields on the model grid and samples them bilinearly;
+``"grid"`` solves them on the grid refined ``subgrid_size`` times, as the
+reference's travel_finer_grid does, and reads the nearest fine point.
+
 Waiting in ROADMAP.md's queue and raising NotImplementedError here:
-``ttf_mode="grid"`` (the fine-grid path), ``grid_mesh`` (the sharded
-solve), and the ``"descent"`` and ``"auto"`` tracers.
+``grid_mesh`` (the sharded solve), and the ``"descent"`` and ``"auto"``
+tracers.
 """
 
 from __future__ import annotations
@@ -89,10 +94,6 @@ class ALI_FMM:
             raise NotImplementedError(
                 "grid_mesh (the sharded solve) is not ported yet: ROADMAP.md "
                 "Queue 1, parallel/")
-        if ttf_mode == "grid":
-            raise NotImplementedError(
-                "ttf_mode='grid' is not ported yet: ROADMAP.md Queue 1, the "
-                "fine-grid path")
 
         if group_vel is None:
             g, p = mats.default_tables()
@@ -271,7 +272,8 @@ class ALI_FMM:
             f"TTF solve ({len(rec_idx)} receivers)"
         )
         ttfs = self._solve_fields(
-            model, self.scx[rec_idx], self.scz[rec_idx], 1, progress=ttf_bar,
+            model, self.scx[rec_idx], self.scz[rec_idx],
+            s if self._ttf_mode == "grid" else 1, progress=ttf_bar,
         )
         rec_pos = {j: k for k, j in enumerate(rec_idx)}
 

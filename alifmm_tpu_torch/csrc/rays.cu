@@ -58,6 +58,18 @@
 // * The exact integrator merges the two monotone crossing sequences with
 //   two pointers instead of sorting them, and skips intervals of zero
 //   length (their terms are exact zeros in the twin).
+// * Two compile-time choices leave the paths above as they were.  The
+//   material path MK: MAT_CURVES reads the 4-column rows and the unified
+//   curve table; MAT_STIFFNESS (exact_materials, or a model without curve
+//   indices) reads 8-column rows (veln, velpn, vel_map, c22, c23, c33,
+//   c44, rho; two aligned loads of 4) and per cell either the group table
+//   (velpn != 0) or the closed-form Christoffel group velocity
+//   (christoffel_group: tan, atan, cos, sin, square roots and divides; a
+//   sample costs some four times a table sample).  The field tap TAP of
+//   K2: TAP_BILINEAR samples a field on the model grid at x / s, as
+//   above; TAP_NEAREST (trace_rays(mode="grid"), fields on the refined
+//   grid) reads the nearest fine point, one load.  The fast-stride mask
+//   (fast_step_scale) is one byte a step, read only when it is given.
 //
 // Arithmetic follows the twins operation for operation (build with
 // -fmad=false): rint for round-half-even, truncation for float -> int,
@@ -81,12 +93,21 @@ constexpr double kSqrt2 = 1.4142135623730951;
 constexpr int kThreads = 128;
 // dynamic shared memory a block may use on sm_90 after the opt-in
 constexpr size_t kMaxSmem = 232448;
-// crossings of the walk whose row loads go out together
+// crossings of the walk whose row loads go out together (4 for the
+// 8-column rows, whose round holds twice the registers)
 constexpr int kWalkChunk = 8;
 // rows of the curve table the integrators read (angles 0..179)
 constexpr int kCurveRows = 180;
+// math.pi and math.pi / 180 of the twins, as doubles
+constexpr double kPi = 3.141592653589793;
+constexpr double kDeg2Rad = kPi / 180.0;
 
 enum Scorer { SIMPSON3 = 0, SIMPSON5 = 1, WALK = 2, EXACT = 3 };
+// material path: unified curve rows, or stiffness rows with the
+// per-sample Christoffel solve (exact_materials)
+enum MatKind { MAT_CURVES = 0, MAT_STIFFNESS = 1 };
+// K2's field tap: bilinear on the model grid, or the nearest fine point
+enum TapKind { TAP_BILINEAR = 0, TAP_NEAREST = 1 };
 
 __device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
@@ -102,6 +123,14 @@ __device__ __forceinline__ float m_fmod(float x, float y) { return fmodf(x, y); 
 __device__ __forceinline__ double m_fmod(double x, double y) { return fmod(x, y); }
 __device__ __forceinline__ float m_copysign(float x, float y) { return copysignf(x, y); }
 __device__ __forceinline__ double m_copysign(double x, double y) { return copysign(x, y); }
+__device__ __forceinline__ float m_tan(float x) { return tanf(x); }
+__device__ __forceinline__ double m_tan(double x) { return tan(x); }
+__device__ __forceinline__ float m_cos(float x) { return cosf(x); }
+__device__ __forceinline__ double m_cos(double x) { return cos(x); }
+__device__ __forceinline__ float m_sin(float x) { return sinf(x); }
+__device__ __forceinline__ double m_sin(double x) { return sin(x); }
+__device__ __forceinline__ float m_tiny(float) { return 1.17549435082228751e-38f; }  // FLT_MIN
+__device__ __forceinline__ double m_tiny(double) { return 2.2250738585072014e-308; }  // DBL_MIN
 
 template <typename T> __device__ __forceinline__ T vmin(T a, T b) { return b < a ? b : a; }
 template <typename T> __device__ __forceinline__ T vmax(T a, T b) { return b > a ? b : a; }
@@ -129,15 +158,17 @@ __device__ __forceinline__ int cell_of(T v, int n) {
   return (int)vclamp<long long>(i, 0, n - 1);
 }
 
-// The model as the integrators read it: per-cell rows (veln, vel_map,
-// curve index, pad), the unified group-velocity curves (A, M) in device
-// or shared memory, the grid.
+// The model as the integrators read it: per-cell rows (MAT_CURVES:
+// veln, vel_map, curve index, pad; MAT_STIFFNESS: veln, velpn, vel_map,
+// c22, c23, c33, c44, rho), the velocity table (the unified group curves,
+// or the group table) (A, M) in device or shared memory, the grid.
 template <typename T>
 struct Mat {
   const T* flat;
   const T* curves;
   const T* dnx_ptr;  // the grid spacing stays on the device: no host read
   int M, Z, X;
+  int has_stif;  // MAT_STIFFNESS: velpn == 0 cells take the Christoffel solve
   T dnx;  // *dnx_ptr, loaded by each kernel (see loaded())
   T s;    // fine cells per model cell
 };
@@ -160,27 +191,107 @@ __device__ __forceinline__ void stage_curves(Mat<T>& m, T* buf, bool use) {
   __syncthreads();
 }
 
+// One gathered row: the table column and scale, and (MAT_STIFFNESS) the
+// stiffness and density; MAT_CURVES leaves those unset.
 template <typename T>
 struct Row {
   T veln, scale;
   int col;
+  T c22, c23, c33, c44, rho;
 };
 
+template <int MK>
 __device__ __forceinline__ Row<float> load_row(const Mat<float>& m, int cell) {
-  float4 v = __ldg(reinterpret_cast<const float4*>(m.flat) + cell);
-  return Row<float>{v.x, v.y, (int)v.z};
+  Row<float> r;
+  if constexpr (MK == MAT_CURVES) {
+    float4 v = __ldg(reinterpret_cast<const float4*>(m.flat) + cell);
+    r.veln = v.x;
+    r.scale = v.y;
+    r.col = (int)v.z;
+  } else {
+    const float4* p = reinterpret_cast<const float4*>(m.flat) + 2 * (size_t)cell;
+    float4 u = __ldg(p), w = __ldg(p + 1);
+    r.veln = u.x;
+    r.col = (int)u.y;
+    r.scale = u.z;
+    r.c22 = u.w;
+    r.c23 = w.x;
+    r.c33 = w.y;
+    r.c44 = w.z;
+    r.rho = w.w;
+  }
+  return r;
 }
 
+template <int MK>
 __device__ __forceinline__ Row<double> load_row(const Mat<double>& m, int cell) {
-  const double2* p = reinterpret_cast<const double2*>(m.flat) + 2 * (size_t)cell;
-  double2 u = __ldg(p), w = __ldg(p + 1);
-  return Row<double>{u.x, u.y, (int)w.x};
+  Row<double> r;
+  if constexpr (MK == MAT_CURVES) {
+    const double2* p = reinterpret_cast<const double2*>(m.flat) + 2 * (size_t)cell;
+    double2 u = __ldg(p), w = __ldg(p + 1);
+    r.veln = u.x;
+    r.scale = u.y;
+    r.col = (int)w.x;
+  } else {
+    const double2* p = reinterpret_cast<const double2*>(m.flat) + 4 * (size_t)cell;
+    double2 u0 = __ldg(p), u1 = __ldg(p + 1), w0 = __ldg(p + 2), w1 = __ldg(p + 3);
+    r.veln = u0.x;
+    r.col = (int)u0.y;
+    r.scale = u1.x;
+    r.c22 = u1.y;
+    r.c23 = w0.x;
+    r.c33 = w0.y;
+    r.c44 = w1.x;
+    r.rho = w1.y;
+  }
+  return r;
 }
 
-// interp_table_gather on the unified curves for one gathered row
+// torch.remainder(x, b) for b > 0: fmod, then a negative remainder
+// shifted by b
 template <typename T>
+__device__ __forceinline__ T floor_mod(T x, T b) {
+  T r = m_fmod(x, b);
+  return (r != T(0) && r < T(0)) ? r + b : r;
+}
+
+// materials.group_velocity_christoffel at `angle` (already in [0, 180]
+// as the twin's torch.remainder(angle_deg, 180) leaves it), operation for
+// operation, computing only the branch the twin's final where selects.
+template <typename T>
+__device__ T christoffel_group(T angle, T c22, T c23, T c33, T c44, T rho, T vel_scale) {
+  T m90 = floor_mod(angle, T(90));
+  bool near_axis = (m90 < T(0.01)) || (m90 > T(90.0 - 0.01));
+  if (near_axis) {
+    bool near_90 = m_abs(angle - T(90)) < T(1);
+    T lam_axis = near_90 ? c33 : c22;
+    return T(1000) * vel_scale * m_sqrt(lam_axis / rho);
+  }
+  T tan_ang = m_tan(angle * T(kDeg2Rad));
+  T A = c22 + c33 - T(2) * c44;
+  T B = (c23 + c44) * (tan_ang - T(1) / tan_ang);
+  T C = c22 - c33;
+  T disc = m_sqrt(vmax(B * B + A * A - C * C, T(0)));
+  T denom = C - A;
+  if (denom == T(0)) denom = m_tiny(denom);
+  T sign = angle < T(90) ? T(-1) : T(1);
+  T phase = floor_mod(m_atan((-B + sign * disc) / denom), T(kPi));
+  T lam = T(0.5) * (m_cos(T(2) * phase) * (c22 - c44) +
+                    m_sin(T(2) * phase) * (c23 + c44) * tan_ang + c22 + c44);
+  return T(1000) * vel_scale * m_sqrt(vmax(lam, T(0)) / rho) /
+         m_cos(angle * T(kDeg2Rad) - phase);
+}
+
+// _group_velocity_cell for one gathered row: interp_table_gather on the
+// table column, or (MAT_STIFFNESS, velpn == 0, a model with stiffness)
+// the Christoffel solve
+template <typename T, int MK>
 __device__ __forceinline__ T row_velocity(const Mat<T>& m, const Row<T>& row, T angle) {
   T eff = mod180(mod180(row.veln - angle));
+  if constexpr (MK == MAT_STIFFNESS) {
+    if (row.col == 0 && m.has_stif)
+      return christoffel_group(eff, row.c22, row.c23, row.c33, row.c44, row.rho, row.scale);
+  }
   int a1 = (int)vclamp<long long>((long long)m_floor(eff), 0, 179);
   int a2 = a1 == 179 ? 0 : a1 + 1;
   T w = eff - T(a1);
@@ -190,9 +301,9 @@ __device__ __forceinline__ T row_velocity(const Mat<T>& m, const Row<T>& row, T 
 }
 
 // Group velocity of cell (yi, xi) for a segment at `angle`.
-template <typename T>
+template <typename T, int MK>
 __device__ __forceinline__ T cell_velocity(const Mat<T>& m, int yi, int xi, T angle) {
-  return row_velocity(m, load_row(m, yi * m.X + xi), angle);
+  return row_velocity<T, MK>(m, load_row<MK>(m, yi * m.X + xi), angle);
 }
 
 // atan with a guarded divisor, in degrees
@@ -209,7 +320,7 @@ template <int N> __device__ __forceinline__ double simpson_weight(int i) {
 
 // Sample i of _simpson_time with N samples: weight x slowness at the
 // fraction i / (N - 1) of the segment from (x1, y1) by (ddx, ddy).
-template <typename T, int N>
+template <typename T, int N, int MK>
 __device__ __forceinline__ T simpson_term(const Mat<T>& m, T x1, T y1, T ddx, T ddy,
                                           T angle, int i) {
   T fr = T(i) * T(1.0 / (N - 1));  // 0, 1/2, 1 or 0, 1/4, ..., 1: exact
@@ -217,11 +328,11 @@ __device__ __forceinline__ T simpson_term(const Mat<T>& m, T x1, T y1, T ddx, T 
   T ym = y1 + ddy * fr;
   int xi = cell_of(xm / m.s, m.X);
   int yi = cell_of(ym / m.s, m.Z);
-  return T(simpson_weight<N>(i)) * (T(1) / cell_velocity(m, yi, xi, angle));
+  return T(simpson_weight<N>(i)) * (T(1) / cell_velocity<T, MK>(m, yi, xi, angle));
 }
 
 // _simpson_time with N = 3 or 5 samples, added in sample order
-template <typename T, int N>
+template <typename T, int N, int MK>
 __device__ __forceinline__ T seg_simpson(const Mat<T>& m, T x1, T y1, T x2, T y2) {
   T ddx = x2 - x1;
   T ddy = y2 - y1;
@@ -230,7 +341,7 @@ __device__ __forceinline__ T seg_simpson(const Mat<T>& m, T x1, T y1, T x2, T y2
   T acc = T(0);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    T term = simpson_term<T, N>(m, x1, y1, ddx, ddy, angle, i);
+    T term = simpson_term<T, N, MK>(m, x1, y1, ddx, ddy, angle, i);
     acc = i == 0 ? term : acc + term;
   }
   return m.dnx * dist * acc;
@@ -254,7 +365,7 @@ struct Axis {
 // segment_time: the crossings of both axes merged with two pointers (each
 // sequence is monotone in k), the last breakpoint 1, intervals added in
 // sorted order; zero-length intervals add exact zeros and are skipped.
-template <typename T>
+template <typename T, int MK>
 __device__ T seg_exact(const Mat<T>& m, T x1, T y1, T x2, T y2, int max_cross) {
   x1 = x1 / m.s;
   x2 = x2 / m.s;
@@ -287,7 +398,7 @@ __device__ T seg_exact(const Mat<T>& m, T x1, T y1, T x2, T y2, int max_cross) {
       T tm = T(0.5) * (t0 + t);
       int xi = cell_of(x1 + tm * dx, m.X);
       int yi = cell_of(y1 + tm * dy, m.Z);
-      T term = scale * (t - t0) / cell_velocity(m, yi, xi, angle);
+      T term = scale * (t - t0) / cell_velocity<T, MK>(m, yi, xi, angle);
       acc = first ? term : acc + term;
       first = false;
     }
@@ -299,10 +410,12 @@ __device__ T seg_exact(const Mat<T>& m, T x1, T y1, T x2, T y2, int max_cross) {
 
 // _segment_time_walk: one crossing per step, in_cross steps in all, terms
 // added in step order; the steps after the end add exact zeros.  In
-// rounds of kWalkChunk steps: the crossings first, then their row loads
-// all at once, then the terms.
-template <typename T>
+// rounds of kWalkChunk steps (half that for 8-column rows): the crossings
+// first, then their row loads all at once, then the terms.  The round's
+// length orders only the loads: the terms are the same for any length.
+template <typename T, int MK>
 __device__ T seg_walk(const Mat<T>& m, T x1, T y1, T x2, T y2, int in_cross) {
+  constexpr int CH = MK == MAT_CURVES ? kWalkChunk : kWalkChunk / 2;
   x1 = x1 / m.s;
   x2 = x2 / m.s;
   y1 = y1 / m.s;
@@ -321,12 +434,12 @@ __device__ T seg_walk(const Mat<T>& m, T x1, T y1, T x2, T y2, int in_cross) {
   T ny = m_rint(y1) + dir_y * T(0.5);
   bool fin_x = false, fin_y = false;
   T acc = T(0);
-  for (int k0 = 0; k0 < in_cross && !(fin_x && fin_y); k0 += kWalkChunk) {
-    int cell[kWalkChunk];
-    T dist[kWalkChunk];
-    bool live[kWalkChunk];
+  for (int k0 = 0; k0 < in_cross && !(fin_x && fin_y); k0 += CH) {
+    int cell[CH];
+    T dist[CH];
+    bool live[CH];
 #pragma unroll
-    for (int q = 0; q < kWalkChunk; ++q) {
+    for (int q = 0; q < CH; ++q) {
       live[q] = k0 + q < in_cross && !(fin_x && fin_y);
       cell[q] = 0;
       dist[q] = T(0);
@@ -355,55 +468,66 @@ __device__ T seg_walk(const Mat<T>& m, T x1, T y1, T x2, T y2, int in_cross) {
       fin_x = fin_x || past_x;
       fin_y = fin_y || past_y;
     }
-    Row<T> row[kWalkChunk];
+    Row<T> row[CH];
 #pragma unroll
-    for (int q = 0; q < kWalkChunk; ++q)
-      if (live[q]) row[q] = load_row(m, cell[q]);
+    for (int q = 0; q < CH; ++q)
+      if (live[q]) row[q] = load_row<MK>(m, cell[q]);
 #pragma unroll
-    for (int q = 0; q < kWalkChunk; ++q) {
+    for (int q = 0; q < CH; ++q) {
       if (!live[q]) continue;
-      T term = dist[q] / row_velocity(m, row[q], angle);
+      T term = dist[q] / row_velocity<T, MK>(m, row[q], angle);
       acc = k0 + q == 0 ? term : acc + term;
     }
   }
   return acc;
 }
 
-template <typename T, int SCORER>
+template <typename T, int SCORER, int MK>
 __device__ __forceinline__ T seg_score(const Mat<T>& m, T x1, T y1, T x2, T y2, int cross) {
-  if (SCORER == SIMPSON3) return seg_simpson<T, 3>(m, x1, y1, x2, y2);
-  if (SCORER == SIMPSON5) return seg_simpson<T, 5>(m, x1, y1, x2, y2);
-  if (SCORER == WALK) return seg_walk<T>(m, x1, y1, x2, y2, cross);
-  return seg_exact<T>(m, x1, y1, x2, y2, cross);
+  if (SCORER == SIMPSON3) return seg_simpson<T, 3, MK>(m, x1, y1, x2, y2);
+  if (SCORER == SIMPSON5) return seg_simpson<T, 5, MK>(m, x1, y1, x2, y2);
+  if (SCORER == WALK) return seg_walk<T, MK>(m, x1, y1, x2, y2, cross);
+  return seg_exact<T, MK>(m, x1, y1, x2, y2, cross);
 }
 
-// Bilinear sample of one (TZ, TX) field at fine coordinates (x, y), in
-// two halves: field_tap issues the four loads, tap_value uses them, so
-// that other work can go between the two.
+// Sample of one (TZ, TX) field at fine coordinates (x, y), in two
+// halves: field_tap issues the loads, tap_value uses them, so that other
+// work can go between the two.  TAP_BILINEAR: the field lies on the model
+// grid, bilinear at (x / s, y / s), four loads.  TAP_NEAREST: the field
+// lies on the refined grid, the point (rint(x), rint(y)) clipped to the
+// field, one load (rint rounds half to even, as torch.round does; fine
+// coordinates sit on half-integers often).
 template <typename T>
 struct Tap {
   T v0, v1, v2, v3, fx, fy;
 };
 
-template <typename T>
+template <typename T, int TAP>
 __device__ __forceinline__ Tap<T> field_tap(const T* f, int TZ, int TX, T s, T x, T y) {
-  T cx = vclamp(x / s, T(0), T(TX - 1));
-  T cy = vclamp(y / s, T(0), T(TZ - 1));
-  int x0 = (int)vclamp<long long>((long long)m_floor(cx), 0, TX - 2);
-  int y0 = (int)vclamp<long long>((long long)m_floor(cy), 0, TZ - 2);
-  const T* p = f + (size_t)y0 * TX + x0;
-  return Tap<T>{p[0], p[1], p[TX], p[TX + 1], cx - T(x0), cy - T(y0)};
+  Tap<T> t;
+  if constexpr (TAP == TAP_NEAREST) {
+    t.v0 = f[(size_t)cell_of(y, TZ) * TX + cell_of(x, TX)];
+  } else {
+    T cx = vclamp(x / s, T(0), T(TX - 1));
+    T cy = vclamp(y / s, T(0), T(TZ - 1));
+    int x0 = (int)vclamp<long long>((long long)m_floor(cx), 0, TX - 2);
+    int y0 = (int)vclamp<long long>((long long)m_floor(cy), 0, TZ - 2);
+    const T* p = f + (size_t)y0 * TX + x0;
+    t = Tap<T>{p[0], p[1], p[TX], p[TX + 1], cx - T(x0), cy - T(y0)};
+  }
+  return t;
 }
 
-template <typename T>
+template <typename T, int TAP>
 __device__ __forceinline__ T tap_value(const Tap<T>& t) {
+  if constexpr (TAP == TAP_NEAREST) return t.v0;
   return t.v0 * (T(1) - t.fy) * (T(1) - t.fx) + t.v1 * (T(1) - t.fy) * t.fx +
          t.v2 * t.fy * (T(1) - t.fx) + t.v3 * t.fy * t.fx;
 }
 
-template <typename T>
+template <typename T, int TAP>
 __device__ __forceinline__ T sample_field(const T* f, int TZ, int TX, T s, T x, T y) {
-  return tap_value(field_tap(f, TZ, TX, s, x, y));
+  return tap_value<T, TAP>(field_tap<T, TAP>(f, TZ, TX, s, x, y));
 }
 
 template <typename T>
@@ -459,6 +583,10 @@ struct MarchArgs {
   int lanes;        // 32 or 64 per ray
   int curves_smem;  // copy the curve table into shared memory
   T off_far, off_near, stride, snap2, near2, arrive2;
+  // fast_step_scale: per model cell 1 where the medium is uniform around
+  // it (rays._uniform_mask), or null; the stride there when far enough
+  const uint8_t* fast;
+  T off_fast, fast_far2;
 };
 
 // Candidates' values per ray in shared memory: TT and the plane, each
@@ -471,9 +599,10 @@ __host__ __device__ __forceinline__ int march_slot_len(int K) {
   return 4 * K + (N > 1 ? K * N + K : 0);
 }
 
-// K2.  32 or 64 lanes per ray; see the note at the top.  With PROF each
-// ray's lane 0 adds up clock64 cycles by part of the step.
-template <typename T, int SCORER, bool PROF>
+// K2.  32 or 64 lanes per ray; see the note at the top.  MK is the
+// material path, TAP the field tap.  With PROF each ray's lane 0 adds up
+// clock64 cycles by part of the step.
+template <typename T, int SCORER, int MK, int TAP, bool PROF>
 __global__ void __launch_bounds__(kThreads, 4)
 march_kernel(MarchArgs<T> a) {
   extern __shared__ __align__(16) unsigned char raw[];
@@ -511,7 +640,7 @@ march_kernel(MarchArgs<T> a) {
     T ex = last_x - rec_x, ey = last_y - rec_y;
     done = ex * ex + ey * ey <= a.arrive2;
   }
-  T tt_last_pt = sample_field(field, a.TZ, a.TX, s, m_rint(last_x), m_rint(last_y));
+  T tt_last_pt = sample_field<T, TAP>(field, a.TZ, a.TX, s, m_rint(last_x), m_rint(last_y));
   long long c_score = 0, c_reduce = 0, c_rest = 0, t0 = 0;
 
   for (int k = 0; k < a.max_steps && !done; ++k) {
@@ -525,7 +654,14 @@ march_kernel(MarchArgs<T> a) {
       vec_x = rec_x - last_x;
       vec_y = rec_y - last_y;
     }
-    T off = near2 < a.near2 ? a.off_near : a.off_far;
+    T off_far = a.off_far;
+    if (a.fast != nullptr) {
+      // the long stride where the medium is uniform around the point and
+      // the receiver is beyond its reach
+      bool fast_here = a.fast[cell_of(last_y / s, m.Z) * m.X + cell_of(last_x / s, m.X)] != 0;
+      if (fast_here && near2 >= a.fast_far2) off_far = a.off_fast;
+    }
+    T off = near2 < a.near2 ? a.off_near : off_far;
 
     // plane orientation: the largest score, the first of equal ones
     int dir = 0;
@@ -580,9 +716,9 @@ march_kernel(MarchArgs<T> a) {
           T w = vmin(lo + a.stride * T(kk), hi);
           T px = pick4(dir, c0, w, w, w);
           T py = pick4(dir, w, c1 - w, c2, w + c3);
-          Tap<T> tap = field_tap(field, a.TZ, a.TX, s, px, py);  // in flight
-          T walk = seg_walk<T>(m, last_x, last_y, px, py, a.in_cross);
-          T tp = tap_value(tap);
+          Tap<T> tap = field_tap<T, TAP>(field, a.TZ, a.TX, s, px, py);  // in flight
+          T walk = seg_walk<T, MK>(m, last_x, last_y, px, py, a.in_cross);
+          T tp = tap_value<T, TAP>(tap);
           plane[kk] = tp;
           tt = tp + walk;
         }
@@ -602,11 +738,11 @@ march_kernel(MarchArgs<T> a) {
         T ddy = py - last_y;
         if (it < K * N) {
           T angle = angle_deg(ddx, ddy);
-          terms[it] = simpson_term<T, N>(m, last_x, last_y, ddx, ddy, angle, it - kk * N);
+          terms[it] = simpson_term<T, N, MK>(m, last_x, last_y, ddx, ddy, angle, it - kk * N);
         } else {
-          Tap<T> tap = field_tap(field, a.TZ, a.TX, s, px, py);
+          Tap<T> tap = field_tap<T, TAP>(field, a.TZ, a.TX, s, px, py);
           segd[kk] = m.dnx * (m_sqrt(ddx * ddx + ddy * ddy) / s);
-          plane[kk] = tap_value(tap);
+          plane[kk] = tap_value<T, TAP>(tap);
         }
       }
       ray_sync(L, slot);
@@ -669,7 +805,7 @@ march_kernel(MarchArgs<T> a) {
     bool plane_oob = (dir == 0 && oob0) || (dir == 2 && oob2);
     T tt_new_pt;
     if (a.k_step == 1) {
-      tt_new_pt = sample_field(field, a.TZ, a.TX, s, m_rint(new_x), m_rint(new_y));
+      tt_new_pt = sample_field<T, TAP>(field, a.TZ, a.TX, s, m_rint(new_x), m_rint(new_y));
     } else {
       int col_b = (int)vclamp<long long>((long long)m_rint(best_pos), 0, K - 1);
       tt_new_pt = plane[col_b];
@@ -728,7 +864,7 @@ struct RelaxArgs {
 
 // One relaxation move of vertex v, in place: v - 1 and v + 1 are of the
 // other parity and do not move in this wave.
-template <typename T, int SCORER>
+template <typename T, int SCORER, int MK>
 __device__ __forceinline__ void relax_vertex(const Mat<T>& m, T* x, T* y, int v, T h,
                                              int max_cross) {
   T px = x[v - 1], py = y[v - 1];
@@ -745,8 +881,8 @@ __device__ __forceinline__ void relax_vertex(const Mat<T>& m, T* x, T* y, int v,
   for (int i = 0; i < 3; ++i) {
     T qx = i == 0 ? cx : (i == 1 ? cx - ux * h : cx + ux * h);
     T qy = i == 0 ? cy : (i == 1 ? cy - uy * h : cy + uy * h);
-    c[i] = seg_score<T, SCORER>(m, px, py, qx, qy, max_cross) +
-           seg_score<T, SCORER>(m, qx, qy, nx, ny, max_cross);
+    c[i] = seg_score<T, SCORER, MK>(m, px, py, qx, qy, max_cross) +
+           seg_score<T, SCORER, MK>(m, qx, qy, nx, ny, max_cross);
   }
   T c0 = c[0], cm = c[1], cp = c[2];
   T d1 = cm - c0;
@@ -763,8 +899,9 @@ __device__ __forceinline__ void relax_vertex(const Mat<T>& m, T* x, T* y, int v,
   y[v] = cy + uy * off;
 }
 
-// K3.  One block per ray: the waves in place, then the ray's time.
-template <typename T, int SCORER>
+// K3.  One block per ray: the waves in place, then the ray's time.  MK
+// is the material path.
+template <typename T, int SCORER, int MK>
 __global__ void __launch_bounds__(kThreads)
 relax_times_kernel(RelaxArgs<T> a) {
   extern __shared__ __align__(16) unsigned char raw[];
@@ -794,7 +931,7 @@ relax_times_kernel(RelaxArgs<T> a) {
       // the vertices of this parity in [1, P - 2] below n - 1
       for (long long v = 2 - parity + 2 * threadIdx.x; v <= P - 2 && v < n - 1;
            v += 2 * kThreads) {
-        relax_vertex<T, SCORER>(m, wx, wy, (int)v, a.h, a.relax_cross);
+        relax_vertex<T, SCORER, MK>(m, wx, wy, (int)v, a.h, a.relax_cross);
       }
       __syncthreads();
     }
@@ -813,7 +950,7 @@ relax_times_kernel(RelaxArgs<T> a) {
   // segments per thread in segment order, then a fixed tree
   T acc = T(0);
   for (int i = threadIdx.x; i < P - 1; i += kThreads) {
-    if (i + 1 < n) acc = acc + seg_exact<T>(m, x[i], y[i], x[i + 1], y[i + 1], a.times_cross);
+    if (i + 1 < n) acc = acc + seg_exact<T, MK>(m, x[i], y[i], x[i + 1], y[i + 1], a.times_cross);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc = acc + __shfl_down_sync(kFull, acc, o);
@@ -827,7 +964,7 @@ relax_times_kernel(RelaxArgs<T> a) {
 }
 
 // The four integrators on n segments, one thread each.
-template <typename T>
+template <typename T, int MK>
 __global__ void __launch_bounds__(kThreads)
 segments_kernel(Mat<T> m_in, int kind, const T* x1, const T* y1, const T* x2,
                 const T* y2, T* out, long long n, int cross) {
@@ -835,16 +972,16 @@ segments_kernel(Mat<T> m_in, int kind, const T* x1, const T* y1, const T* x2,
   if (i >= n) return;
   const Mat<T> m = loaded(m_in);
   T v;
-  if (kind == SIMPSON3) v = seg_simpson<T, 3>(m, x1[i], y1[i], x2[i], y2[i]);
-  else if (kind == SIMPSON5) v = seg_simpson<T, 5>(m, x1[i], y1[i], x2[i], y2[i]);
-  else if (kind == WALK) v = seg_walk<T>(m, x1[i], y1[i], x2[i], y2[i], cross);
-  else v = seg_exact<T>(m, x1[i], y1[i], x2[i], y2[i], cross);
+  if (kind == SIMPSON3) v = seg_simpson<T, 3, MK>(m, x1[i], y1[i], x2[i], y2[i]);
+  else if (kind == SIMPSON5) v = seg_simpson<T, 5, MK>(m, x1[i], y1[i], x2[i], y2[i]);
+  else if (kind == WALK) v = seg_walk<T, MK>(m, x1[i], y1[i], x2[i], y2[i], cross);
+  else v = seg_exact<T, MK>(m, x1[i], y1[i], x2[i], y2[i], cross);
   out[i] = v;
 }
 
 template <typename T>
 Mat<T> make_mat(const void* flat, const void* curves, int M, int Z, int X,
-                const void* dnx, int s) {
+                const void* dnx, int s, int has_stif) {
   Mat<T> m;
   m.flat = static_cast<const T*>(flat);
   m.curves = static_cast<const T*>(curves);
@@ -852,6 +989,7 @@ Mat<T> make_mat(const void* flat, const void* curves, int M, int Z, int X,
   m.M = M;
   m.Z = Z;
   m.X = X;
+  m.has_stif = has_stif;
   m.dnx = T(0);
   m.s = T(s);
   return m;
@@ -871,20 +1009,45 @@ int launch(void (*kernel)(A), unsigned blocks, size_t smem, void* stream, const 
   return (int)cudaGetLastError();
 }
 
+template <typename T, int MK, int TAP, bool PROF>
+void (*march_for_scorer(int scorer))(MarchArgs<T>) {
+  if (scorer == SIMPSON3) return march_kernel<T, SIMPSON3, MK, TAP, PROF>;
+  if (scorer == SIMPSON5) return march_kernel<T, SIMPSON5, MK, TAP, PROF>;
+  if (scorer == WALK) return march_kernel<T, WALK, MK, TAP, PROF>;
+  return nullptr;
+}
+
+// The march for (scorer, material path, tap); the PROF build exists for
+// float with the unified curves and the bilinear tap only.
 template <typename T, bool PROF>
-void (*march_fn(int scorer))(MarchArgs<T>) {
-  if (scorer == SIMPSON3) return march_kernel<T, SIMPSON3, PROF>;
-  if (scorer == SIMPSON5) return march_kernel<T, SIMPSON5, PROF>;
-  if (scorer == WALK) return march_kernel<T, WALK, PROF>;
+void (*march_fn(int scorer, int mk, int tap))(MarchArgs<T>) {
+  if constexpr (PROF) {
+    if constexpr (std::is_same<T, float>::value) {
+      if (mk == MAT_CURVES && tap == TAP_BILINEAR)
+        return march_for_scorer<T, MAT_CURVES, TAP_BILINEAR, true>(scorer);
+    }
+    return nullptr;
+  } else {
+    if (mk == MAT_CURVES)
+      return tap == TAP_NEAREST ? march_for_scorer<T, MAT_CURVES, TAP_NEAREST, false>(scorer)
+                                : march_for_scorer<T, MAT_CURVES, TAP_BILINEAR, false>(scorer);
+    return tap == TAP_NEAREST ? march_for_scorer<T, MAT_STIFFNESS, TAP_NEAREST, false>(scorer)
+                              : march_for_scorer<T, MAT_STIFFNESS, TAP_BILINEAR, false>(scorer);
+  }
+}
+
+template <typename T, int MK>
+void (*relax_for_scorer(int scorer))(RelaxArgs<T>) {
+  if (scorer == SIMPSON3) return relax_times_kernel<T, SIMPSON3, MK>;
+  if (scorer == SIMPSON5) return relax_times_kernel<T, SIMPSON5, MK>;
+  if (scorer == EXACT) return relax_times_kernel<T, EXACT, MK>;
   return nullptr;
 }
 
 template <typename T>
-void (*relax_times_fn(int scorer))(RelaxArgs<T>) {
-  if (scorer == SIMPSON3) return relax_times_kernel<T, SIMPSON3>;
-  if (scorer == SIMPSON5) return relax_times_kernel<T, SIMPSON5>;
-  if (scorer == EXACT) return relax_times_kernel<T, EXACT>;
-  return nullptr;
+void (*relax_times_fn(int scorer, int mk))(RelaxArgs<T>) {
+  return mk == MAT_CURVES ? relax_for_scorer<T, MAT_CURVES>(scorer)
+                          : relax_for_scorer<T, MAT_STIFFNESS>(scorer);
 }
 
 size_t march_smem(int scorer, int K, int lanes, int curves_smem, int M, size_t item) {
@@ -899,17 +1062,18 @@ size_t relax_times_smem(int P, int curves_smem, int poly_smem, int M, size_t ite
 
 template <typename T>
 int launch_march(const void* flat, const void* curves, int M, int Z, int X,
-                 const void* dnx, int s, const void* fields, long long field_stride,
-                 int TZ, int TX, const void* ttf_index, const void* src,
-                 const void* rec, void* bx, void* by, void* length,
+                 const void* dnx, int s, int mat_kind, int has_stif, const void* fields,
+                 long long field_stride, int TZ, int TX, const void* ttf_index,
+                 const void* src, const void* rec, void* bx, void* by, void* length,
                  void* reason, void* steps, int R, int P, int max_steps, int K,
                  int k_step, int in_cross, int plane_dist, double off_far,
                  double off_near, double stride, double snap2, double near2,
                  double arrive2, int scorer, int lanes, int curves_smem, void* prof,
+                 int tap, const void* fast, double off_fast, double fast_far2,
                  void* stream) {
   if (lanes != 32 && lanes != 64) return (int)cudaErrorInvalidValue;
   MarchArgs<T> a;
-  a.m = make_mat<T>(flat, curves, M, Z, X, dnx, s);
+  a.m = make_mat<T>(flat, curves, M, Z, X, dnx, s, has_stif);
   a.fields = static_cast<const T*>(fields);
   a.field_stride = field_stride;
   a.TZ = TZ;
@@ -929,8 +1093,10 @@ int launch_march(const void* flat, const void* curves, int M, int Z, int X,
   a.K = K;
   a.k_step = k_step;
   a.in_cross = in_cross;
-  a.rows = (Z - 1) * s + 1;
-  a.cols = (X - 1) * s + 1;
+  // the plane's range: the refined grid of the model, or (the nearest
+  // tap) the fields' own
+  a.rows = tap == TAP_NEAREST ? TZ : (Z - 1) * s + 1;
+  a.cols = tap == TAP_NEAREST ? TX : (X - 1) * s + 1;
   a.sd = plane_dist * s + 1;
   a.sd2 = (plane_dist - 1) * s + 1;
   a.lanes = lanes;
@@ -941,27 +1107,26 @@ int launch_march(const void* flat, const void* curves, int M, int Z, int X,
   a.snap2 = T(snap2);
   a.near2 = T(near2);
   a.arrive2 = T(arrive2);
+  a.fast = static_cast<const uint8_t*>(fast);
+  a.off_fast = T(off_fast);
+  a.fast_far2 = T(fast_far2);
   const int per_block = kThreads / lanes;
   unsigned blocks = (unsigned)((R + per_block - 1) / per_block);
   size_t smem = march_smem(scorer, K, lanes, curves_smem, M, sizeof(T));
-  void (*kernel)(MarchArgs<T>) = march_fn<T, false>(scorer);
-  if constexpr (std::is_same<T, float>::value) {
-    if (prof != nullptr) kernel = march_fn<T, true>(scorer);
-  } else {
-    if (prof != nullptr) kernel = nullptr;  // PROF is built for float only
-  }
+  void (*kernel)(MarchArgs<T>) = prof != nullptr ? march_fn<T, true>(scorer, mat_kind, tap)
+                                                 : march_fn<T, false>(scorer, mat_kind, tap);
   return launch(kernel, blocks, smem, stream, a);
 }
 
 template <typename T>
 int launch_relax_times(const void* flat, const void* curves, int M, int Z, int X,
-                       const void* dnx, int s, const void* xs, const void* ys,
-                       const void* lengths, void* ox, void* oy, void* times, int R,
-                       int P, int n_waves, int parity0, double h, int relax_cross,
+                       const void* dnx, int s, int mat_kind, int has_stif, const void* xs,
+                       const void* ys, const void* lengths, void* ox, void* oy, void* times,
+                       int R, int P, int n_waves, int parity0, double h, int relax_cross,
                        int relax_scorer, int times_cross, int curves_smem,
                        int poly_smem, void* stream) {
   RelaxArgs<T> a;
-  a.m = make_mat<T>(flat, curves, M, Z, X, dnx, s);
+  a.m = make_mat<T>(flat, curves, M, Z, X, dnx, s, has_stif);
   a.xs = static_cast<const T*>(xs);
   a.ys = static_cast<const T*>(ys);
   a.lengths = static_cast<const long long*>(lengths);
@@ -979,39 +1144,43 @@ int launch_relax_times(const void* flat, const void* curves, int M, int Z, int X
   a.poly_smem = n_waves > 0 && poly_smem;
   if (n_waves > 0 && (ox == nullptr || oy == nullptr)) return (int)cudaErrorInvalidValue;
   size_t smem = relax_times_smem(P, curves_smem, a.poly_smem, M, sizeof(T));
-  return launch(relax_times_fn<T>(relax_scorer), (unsigned)R, smem, stream, a);
+  return launch(relax_times_fn<T>(relax_scorer, mat_kind), (unsigned)R, smem, stream, a);
 }
 
 template <typename T>
 int launch_segments(const void* flat, const void* curves, int M, int Z, int X,
-                    const void* dnx, int s, int kind, const void* x1, const void* y1,
-                    const void* x2, const void* y2, void* out, long long n,
-                    int cross, void* stream) {
-  Mat<T> m = make_mat<T>(flat, curves, M, Z, X, dnx, s);
+                    const void* dnx, int s, int mat_kind, int has_stif, int kind,
+                    const void* x1, const void* y1, const void* x2, const void* y2,
+                    void* out, long long n, int cross, void* stream) {
+  Mat<T> m = make_mat<T>(flat, curves, M, Z, X, dnx, s, has_stif);
   dim3 grid((unsigned)((n + kThreads - 1) / kThreads)), block(kThreads);
-  segments_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      m, kind, static_cast<const T*>(x1), static_cast<const T*>(y1),
-      static_cast<const T*>(x2), static_cast<const T*>(y2), static_cast<T*>(out), n, cross);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T *p1 = static_cast<const T*>(x1), *q1 = static_cast<const T*>(y1);
+  const T *p2 = static_cast<const T*>(x2), *q2 = static_cast<const T*>(y2);
+  if (mat_kind == MAT_CURVES)
+    segments_kernel<T, MAT_CURVES><<<grid, block, 0, st>>>(m, kind, p1, q1, p2, q2,
+                                                           static_cast<T*>(out), n, cross);
+  else
+    segments_kernel<T, MAT_STIFFNESS><<<grid, block, 0, st>>>(m, kind, p1, q1, p2, q2,
+                                                              static_cast<T*>(out), n, cross);
   return (int)cudaGetLastError();
 }
 
 // Blocks of a kernel resident per SM at this shared memory: which = 0 the
 // march (with PROF if prof), 1 K3.
 template <typename T>
-int occupancy(int which, int scorer, int prof, size_t smem) {
+int occupancy(int which, int scorer, int mk, int tap, int prof, size_t smem) {
   int blocks = -1;
   cudaError_t e;
   if (which == 0) {
-    void (*k)(MarchArgs<T>) = march_fn<T, false>(scorer);
-    if constexpr (std::is_same<T, float>::value) {
-      if (prof) k = march_fn<T, true>(scorer);
-    }
+    void (*k)(MarchArgs<T>) = prof ? march_fn<T, true>(scorer, mk, tap)
+                                   : march_fn<T, false>(scorer, mk, tap);
     if (k == nullptr) return -1;
     if (smem > 48 * 1024)
       cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads, smem);
   } else {
-    void (*k)(RelaxArgs<T>) = relax_times_fn<T>(scorer);
+    void (*k)(RelaxArgs<T>) = relax_times_fn<T>(scorer, mk);
     if (k == nullptr) return -1;
     if (smem > 48 * 1024)
       cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1022,9 +1191,10 @@ int occupancy(int which, int scorer, int prof, size_t smem) {
 
 }  // namespace
 
-#define ALIFMM_MAT_PARAMS \
-  const void *flat, const void *curves, int M, int Z, int X, const void *dnx, int s
-#define ALIFMM_MAT_ARGS flat, curves, M, Z, X, dnx, s
+#define ALIFMM_MAT_PARAMS                                                      \
+  const void *flat, const void *curves, int M, int Z, int X, const void *dnx, \
+      int s, int mat_kind, int has_stif
+#define ALIFMM_MAT_ARGS flat, curves, M, Z, X, dnx, s, mat_kind, has_stif
 
 #define ALIFMM_MARCH_PARAMS                                                     \
   ALIFMM_MAT_PARAMS, const void *fields, long long field_stride, int TZ, int TX, \
@@ -1033,12 +1203,13 @@ int occupancy(int which, int scorer, int prof, size_t smem) {
       int max_steps, int K, int k_step, int in_cross, int plane_dist,           \
       double off_far, double off_near, double stride, double snap2,             \
       double near2, double arrive2, int scorer, int lanes, int curves_smem,     \
-      void *prof, void *stream
+      void *prof, int tap, const void *fast, double off_fast, double fast_far2, \
+      void *stream
 #define ALIFMM_MARCH_ARGS                                                        \
   ALIFMM_MAT_ARGS, fields, field_stride, TZ, TX, ttf_index, src, rec, bx, by,    \
       length, reason, steps, R, P, max_steps, K, k_step, in_cross, plane_dist,   \
       off_far, off_near, stride, snap2, near2, arrive2, scorer, lanes,           \
-      curves_smem, prof, stream
+      curves_smem, prof, tap, fast, off_fast, fast_far2, stream
 
 #define ALIFMM_RELAX_PARAMS                                                      \
   ALIFMM_MAT_PARAMS, const void *xs, const void *ys, const void *lengths,       \
@@ -1072,10 +1243,10 @@ long long alifmm_relax_times_smem(int P, int curves_smem, int poly_smem, int M, 
   return (long long)relax_times_smem(P, curves_smem, poly_smem, M, (size_t)item);
 }
 // blocks resident per SM, or -1
-int alifmm_occupancy_f32(int which, int scorer, int prof, long long smem) {
-  return occupancy<float>(which, scorer, prof, (size_t)smem);
+int alifmm_occupancy_f32(int which, int scorer, int mat_kind, int tap, int prof, long long smem) {
+  return occupancy<float>(which, scorer, mat_kind, tap, prof, (size_t)smem);
 }
-int alifmm_occupancy_f64(int which, int scorer, int prof, long long smem) {
-  return occupancy<double>(which, scorer, 0, (size_t)smem);
+int alifmm_occupancy_f64(int which, int scorer, int mat_kind, int tap, int prof, long long smem) {
+  return occupancy<double>(which, scorer, mat_kind, tap, 0, (size_t)smem);
 }
 }

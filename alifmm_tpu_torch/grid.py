@@ -20,8 +20,8 @@ import torch
 from . import materials as mat
 
 __all__ = ["Model", "make_model", "model_from_numpy", "resolve_device",
-           "refine_nearest",
-           "refine_nearest_3d", "phase_velocity_at", "group_velocity_at"]
+           "refine_nearest", "refine_nearest_3d", "refine_model",
+           "phase_velocity_at", "group_velocity_at"]
 
 # Tensor fields of Model, in declaration order.
 TENSOR_FIELDS = ("veln", "velpn", "vel_map", "stif", "group_tab", "phase_tab",
@@ -96,6 +96,27 @@ def refine_nearest_3d(arr, scale: int):
     iz = _nearest_index(arr.shape[-3], scale, arr.device)
     ix = _nearest_index(arr.shape[-2], scale, arr.device)
     return arr[..., iz, :, :][..., ix, :]
+
+
+def refine_model(model: Model, scale: int) -> Model:
+    """Nearest-neighbour refinement of a whole model by odd ``scale``, on
+    its device, with the reference's dtype quirks: ``veln`` through int32,
+    ``velpn`` int; ``dnx / scale``; the fallback slowness planes rebuilt
+    on the refined fields, the curve indices refined, the curve tables
+    kept."""
+    if scale == 1:
+        return model
+    veln = refine_nearest(model.veln, scale, torch.int32).to(model.dtype)
+    velpn = refine_nearest(model.velpn, scale, torch.int32)
+    vel_map = refine_nearest(model.vel_map, scale)
+    stif = refine_nearest_3d(model.stif, scale)
+    fb = _fallback_slowness_planes(veln, velpn, vel_map, stif,
+                                   model.group_tab, model.has_stif)
+    curve_idx = (refine_nearest(model.ray_curve_idx, scale)
+                 if model.ray_curve_idx is not None else None)
+    return dataclasses.replace(
+        model, veln=veln, velpn=velpn, vel_map=vel_map, stif=stif,
+        fallback_slowness=fb, dnx=model.dnx / scale, ray_curve_idx=curve_idx)
 
 
 def _stif_cols(stif):

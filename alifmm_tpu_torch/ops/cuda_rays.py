@@ -18,6 +18,13 @@ Both kernels copy the model's curve table into shared memory where it
 fits, and K3 a ray's polyline; ``shared=False`` on ``prepare_march`` and
 ``prepare_relax_and_times`` keeps both in device memory, so that a check
 can hold that path against the twins too.
+
+The material rows (``rays._material_flat``) pick the material path: 4
+columns read the unified curve table, 8 columns (``exact_materials``) the
+group table or the Christoffel solve per sample.  ``MarchSpec.grid``
+picks K2's nearest-point field tap over the bilinear one, and a march
+with ``MarchSpec.k_fast`` reads the uniform mask ``fast``.  Each choice
+is a separate instantiation of the kernel in ``csrc/rays.cu``.
 """
 
 from __future__ import annotations
@@ -43,6 +50,9 @@ _LIB = None
 BUILD_LOG = ""
 # the integrators' codes in csrc/rays.cu
 SIMPSON3, SIMPSON5, WALK, EXACT = 0, 1, 2, 3
+# material paths and field taps (MatKind, TapKind in csrc/rays.cu)
+MAT_CURVES, MAT_STIFFNESS = 0, 1
+TAP_BILINEAR, TAP_NEAREST = 0, 1
 # dynamic shared memory a block may use on sm_90 after the opt-in (kMaxSmem
 # in csrc/rays.cu); the march keeps its blocks to a quarter of it, so that
 # four of them (16 warps) share an SM
@@ -51,14 +61,15 @@ MARCH_SMEM = MAX_SMEM // 4
 
 _PTR, _I32, _I64, _F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_double)
-_MAT = [_PTR, _PTR, _I32, _I32, _I32, _PTR, _I32]
+_MAT = [_PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _I32, _I32]
 _ARGTYPES = {
     "alifmm_march": _MAT + [_PTR, _I64, _I32, _I32] + [_PTR] * 8
-    + [_I32] * 7 + [_F64] * 6 + [_I32] * 3 + [_PTR, _PTR],
+    + [_I32] * 7 + [_F64] * 6 + [_I32] * 3 + [_PTR, _I32, _PTR, _F64, _F64,
+                                              _PTR],
     "alifmm_relax_times": _MAT + [_PTR] * 6 + [_I32] * 4 + [_F64]
     + [_I32] * 5 + [_PTR],
     "alifmm_segments": _MAT + [_I32] + [_PTR] * 5 + [_I64, _I32, _PTR],
-    "alifmm_occupancy": [_I32, _I32, _I32, _I64],
+    "alifmm_occupancy": [_I32] * 5 + [_I64],
 }
 _SIZES = {"alifmm_march_smem": [_I32] * 6,
           "alifmm_relax_times_smem": [_I32] * 5}
@@ -105,25 +116,32 @@ def _check(name, t, dtype, device, shape=None):
 
 
 def _mat_args(model: gridlib.Model, mat_flat, subgrid_size):
-    """The leading arguments every kernel takes: material rows, curve
-    table, grid and spacing (``dnx`` goes by pointer: reading it here
-    would make the host wait for the device).  Returns (args, the tensors
-    behind the pointers).  The caller keeps the tensors until it has
-    launched: ``contiguous()`` may have made a copy, and a freed copy's
-    memory could go to the outputs the caller allocates before the
-    launch."""
+    """The leading arguments every kernel takes: material rows, velocity
+    table (the unified curves for 4-column rows, the group table for
+    8-column ones), grid and spacing (``dnx`` goes by pointer: reading it
+    here would make the host wait for the device), the material path and
+    whether the model has stiffness.  Returns (args, the tensors behind
+    the pointers).  The caller keeps the tensors until it has launched:
+    ``contiguous()`` may have made a copy, and a freed copy's memory could
+    go to the outputs the caller allocates before the launch."""
     Z, X = model.shape
     dt, dev = model.dtype, model.device
-    mat_flat = _check("mat_flat", mat_flat, dt, dev, (Z * X, 4))
+    ncol = mat_flat.shape[-1] if mat_flat.dim() == 2 else 0
+    if ncol not in (4, 8):
+        raise ValueError(f"mat_flat of shape {tuple(mat_flat.shape)}: rows "
+                         f"of 4 or 8 columns")
+    mat_flat = _check("mat_flat", mat_flat, dt, dev, (Z * X, ncol))
     if mat_flat.data_ptr() % 16:
         raise ValueError("mat_flat rows must be 16-byte aligned")
-    curves = _check("ray_curves", model.ray_curves, dt, dev)
+    kind = MAT_CURVES if ncol == 4 else MAT_STIFFNESS
+    table = model.ray_curves if kind == MAT_CURVES else model.group_tab
+    curves = _check("velocity table", table, dt, dev)
     dnx = _check("dnx", model.dnx, dt, dev, ())
     if int(subgrid_size) != subgrid_size or subgrid_size < 1:
         raise ValueError(f"subgrid_size {subgrid_size!r} is not a positive "
                          f"integer")
     args = [mat_flat.data_ptr(), curves.data_ptr(), curves.shape[1], Z, X,
-            dnx.data_ptr(), int(subgrid_size)]
+            dnx.data_ptr(), int(subgrid_size), kind, int(model.has_stif)]
     return args, (mat_flat, curves, dnx)
 
 
@@ -167,11 +185,12 @@ def march_lanes(spec) -> int:
 
 
 def prepare_march(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
-                  source_xy, receiver_xy, spec, shared: bool = True,
+                  source_xy, receiver_xy, spec, fast=None, shared: bool = True,
                   profile: bool = False) -> Prepared:
     """K2's launch on CUDA tensors (see ``march``).  ``profile`` launches
-    the float32 build that adds clock64 cycles by part of the step into an
-    (R, 3) int64 output: scoring, reduction, the rest."""
+    the float32 build (unified curves, bilinear tap) that adds clock64
+    cycles by part of the step into an (R, 3) int64 output: scoring,
+    reduction, the rest."""
     dt, dev = model.dtype, model.device
     R = source_xy.shape[0]
     if rec_ttf.dim() not in (2, 3):
@@ -185,9 +204,21 @@ def prepare_march(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
     rec = _check("receiver_xy", receiver_xy.to(dt), dt, dev, (R, 2))
     if spec.K < 3 or spec.max_steps < 0:
         raise ValueError(f"march with K={spec.K}, max_steps={spec.max_steps}")
-    if profile and dt != torch.float32:
-        raise TypeError("the march's profiling build is float32 only")
     mat, held = _mat_args(model, mat_flat, spec.s)
+    tap = TAP_NEAREST if spec.grid else TAP_BILINEAR
+    if profile and (dt != torch.float32 or mat[7] != MAT_CURVES
+                    or tap != TAP_BILINEAR):
+        raise TypeError("the march's profiling build is float32 with the "
+                        "unified curves and the bilinear tap only")
+    if spec.k_fast > 0:
+        Z, X = model.shape
+        if fast is None:
+            raise ValueError("a march with fast_step_scale needs the "
+                             "uniform mask")
+        fast = _check("fast", fast.to(torch.uint8), torch.uint8, dev,
+                      (Z * X,))
+    else:
+        fast = None
     lanes = march_lanes(spec)
     item = rec_ttf.element_size()
     sizes = build()
@@ -214,24 +245,28 @@ def prepare_march(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
         spec.in_cross, spec.plane_dist, float(spec.k_step * s),
         float(spec.near_step * s), float(spec.stride), (4.0 * s) ** 2,
         ((spec.k_step + 3.0) * s) ** 2, (1.6 * s) ** 2, spec.scorer, lanes,
-        int(curves_smem), None if prof is None else prof.data_ptr()]
+        int(curves_smem), None if prof is None else prof.data_ptr(), tap,
+        None if fast is None else fast.data_ptr(), float(spec.k_fast * s),
+        ((spec.k_fast + 3.0) * s) ** 2]
     out = (bx, by, length, reason, steps) + ((prof,) if profile else ())
     return Prepared("march", _fn("alifmm_march", dt), args, out,
-                    held + (rec_ttf, ttf_index, src, rec), dev,
-                    dict(lanes=lanes, curves_smem=curves_smem, smem=smem))
+                    held + (rec_ttf, ttf_index, src, rec, fast), dev,
+                    dict(lanes=lanes, curves_smem=curves_smem, smem=smem,
+                         mat_kind=mat[7], tap=tap))
 
 
 def march(model: gridlib.Model, mat_flat, rec_ttf, ttf_index, source_xy,
-          receiver_xy, spec):
+          receiver_xy, spec, fast=None):
     """March every ray from source to end (``rays.march_plain`` states the
     result): K2 in one launch on CUDA tensors, the plain twin on CPU
-    tensors.  ``spec``: a ``rays.MarchSpec``.  ``ttf_index`` must lie within
-    the field stack: ``trace_rays`` checks that, the kernel does not."""
+    tensors.  ``spec``: a ``rays.MarchSpec``; ``fast``: the (Z*X,) uniform
+    mask when ``spec.k_fast`` > 0.  ``ttf_index`` must lie within the
+    field stack: ``trace_rays`` checks that, the kernel does not."""
     if not rec_ttf.is_cuda:
         return rayslib.march_plain(model, mat_flat, rec_ttf, ttf_index,
-                                   source_xy, receiver_xy, spec)
+                                   source_xy, receiver_xy, spec, fast)
     p = prepare_march(model, mat_flat, rec_ttf, ttf_index, source_xy,
-                      receiver_xy, spec)
+                      receiver_xy, spec, fast)
     if source_xy.shape[0]:
         _launch(p)
     return p.out
@@ -274,7 +309,7 @@ def prepare_relax_and_times(model: gridlib.Model, mat_flat, xs, ys, lengths,
     return Prepared("relax_times", _fn("alifmm_relax_times", dt), args,
                     (ox, oy, out_t), held + (xs, ys, lengths), dev,
                     dict(curves_smem=curves_smem, poly_smem=poly_smem,
-                         smem=smem))
+                         smem=smem, mat_kind=mat[7], tap=TAP_BILINEAR))
 
 
 def relax_and_times(model: gridlib.Model, mat_flat, xs, ys, lengths,
@@ -331,10 +366,10 @@ def ray_times(model: gridlib.Model, mat_flat, ray_x, ray_y, lengths,
 def segments(model: gridlib.Model, mat_flat, kind: int, x1, y1, x2, y2,
              subgrid_size, cross: int = 16):
     """The kernels' segment integrator ``kind`` (SIMPSON3, SIMPSON5, WALK,
-    EXACT) on (n,) CUDA segments: what ``segment_time_quad3``,
-    ``segment_time_quad``, ``_segment_time_walk`` and ``segment_time`` of
-    ``rays.py`` compute.  For checking the device functions; no entry
-    point calls it."""
+    EXACT) on (n,) CUDA segments, with the material path of ``mat_flat``:
+    what ``segment_time_quad3``, ``segment_time_quad``,
+    ``_segment_time_walk`` and ``segment_time`` of ``rays.py`` compute.
+    For checking the device functions; no entry point calls it."""
     dt, dev = model.dtype, model.device
     if not x1.is_cuda:
         raise ValueError("segments runs the CUDA integrators and takes CUDA "
@@ -358,8 +393,9 @@ def occupancy(p: Prepared, scorer: int, dtype) -> int:
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); 128 threads a
     block."""
     which = 0 if p.name == "march" else 1
-    profile = p.name == "march" and p.args[-1] is not None
-    blocks = _fn("alifmm_occupancy", dtype)(which, scorer, int(profile),
+    profile = p.name == "march" and len(p.out) > 5
+    blocks = _fn("alifmm_occupancy", dtype)(which, scorer, p.plan["mat_kind"],
+                                            p.plan["tap"], int(profile),
                                             p.plan["smem"])
     if blocks < 0:
         raise RuntimeError(f"no occupancy for {p.name}")

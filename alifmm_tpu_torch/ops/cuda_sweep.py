@@ -112,7 +112,11 @@ def launch_config(B: int, Z: int, X: int, sms: int,
     CTAs per SM) does less redundant work.  C is the largest of 8, 4, 2, 1
     that keeps all B x C CTAs resident at two per SM and width tiles of at
     least ``MIN_TILE`` points: C = 8 for the 31 weld sources at 424 x 500,
-    109 x 109 and 79 x 79."""
+    109 x 109 and 79 x 79, and on the refined weld (s = 9) at 397 x 397,
+    295 x 295 and 3808 x 4492.  Residency is for speed only: the CTAs of
+    a cluster meet at its barriers, no CTA waits for another cluster, so
+    where fewer fit (one CTA of 193 KB of shared memory per SM in float64
+    at 3808 x 4492's tiles of 562 points) the clusters run in turns."""
     width = max(Z, X)
     if lanes is None:
         lanes = 8 if B * width <= 32 * sms else 4

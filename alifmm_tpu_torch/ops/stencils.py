@@ -67,11 +67,13 @@ _KNIGHT_B = ((-2, 1), (1, 2), (2, -1), (-1, -2))
 
 
 def _sel(cond, a, b, like):
-    """``where`` whose scalar branches take the dtype of ``like``."""
+    """``where`` whose scalar branches take the dtype of ``like`` (filled on
+    its device: no copy from the host, which a CUDA graph could not
+    capture)."""
     if not torch.is_tensor(a):
-        a = torch.tensor(a, dtype=like.dtype, device=like.device)
+        a = like.new_full((), a)
     if not torch.is_tensor(b):
-        b = torch.tensor(b, dtype=like.dtype, device=like.device)
+        b = like.new_full((), b)
     return torch.where(cond, a, b)
 
 

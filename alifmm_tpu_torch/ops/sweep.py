@@ -68,9 +68,76 @@ def _line_mats(model, axis, i):
             [fb[..., f, :, i] for f in range(4)])
 
 
-def _sweep(tt, model, fixed, axis, rev, replace):
+def _line(band, flags, fixed_row, rep, mats, wok, wfirst, wlast, axis,
+          model):
+    """The new values of one grid line.  ``band``: the padded work rows
+    i-2..i+2, (..., 5, W + 4); ``flags``: (7,) bool, rows i-2..i+2 inside
+    the grid, then whether line i is the first and the last; ``mats``:
+    ``_line_mats`` of the line."""
+    W = band.shape[-1] - 4
+    tt_center = band[..., 2, 2: 2 + W]
+    nbr, known, inb = {}, {}, {}
+    for (dz, dx) in OFFSETS:
+        db, dw = (dz, dx) if axis == "z" else (dx, dz)
+        v = band[..., 2 + db, 2 + dw: 2 + dw + W]
+        nbr[(dz, dx)] = v
+        known[(dz, dx)] = (v < INF * 0.5) & (v < tt_center)
+        inb[(dz, dx)] = flags[2 + db] & wok[dw]
+    line0, lineN = flags[5], flags[6]
+    if axis == "z":
+        edges = dict(top=line0, bottom=lineN, left=wfirst, right=wlast)
+    else:
+        edges = dict(left=line0, right=lineN, top=wfirst, bottom=wlast)
+    veln, velpn, vel_map, stif, fbs = mats
+    new = stencils.local_update(nbr, known, inb, tt_center, veln, velpn,
+                                vel_map, stif, fbs, edges, model, model.dnx,
+                                causal=True)
+    old_center = tt_center.clone()
+    acc_min = torch.minimum(old_center, new)
+    acc_rep = torch.where(new < INF * 0.5, new, old_center)
+    new = torch.where(rep, acc_rep, acc_min)
+    return torch.where(fixed_row, old_center, new)
+
+
+def _graphed_line(first, consts):
+    """``_line`` captured once in a CUDA graph on static copies of its
+    inputs (``first``: those of one line; ``consts``: the arguments that
+    stay for the whole sweep).  Returns ``run(band, flags, fixed_row,
+    mats)``, which copies a line's inputs in, replays the graph and returns
+    its output buffer: the same kernels on the same values as the eager
+    call, so the same bits, with a few host calls a line instead of
+    hundreds."""
+    def flat(band, flags, fixed_row, mats):
+        return [band, flags, fixed_row, *mats[:4], *mats[4]]
+
+    statics = [t.clone() for t in flat(*first)]
+    dev = statics[0].device
+
+    def call():
+        b, f, fr, *m = statics
+        return _line(b, f, fr, consts[0], (*m[:4], m[4:]), *consts[1:])
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        call()  # loads every kernel before the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+
+    def run(*line_inputs):
+        for s, t in zip(statics, flat(*line_inputs)):
+            s.copy_(t)
+        graph.replay()
+        return out
+    return run
+
+
+def _sweep(tt, model, fixed, axis, rev, replace, graphed=False):
     """One directional Gauss-Seidel sweep along ``axis``; ``replace`` is a
-    bool tensor broadcasting against the source batch."""
+    bool tensor broadcasting against the source batch; ``graphed``: see
+    ``gs_pass``."""
     if axis == "x":
         tt = tt.transpose(-1, -2)
         fixed = fixed.transpose(-1, -2)
@@ -80,51 +147,45 @@ def _sweep(tt, model, fixed, axis, rev, replace):
     iw = torch.arange(W, device=dev)
     wok = {d: (iw + d >= 0) & (iw + d <= W - 1) for d in (-2, -1, 0, 1, 2)}
     wfirst, wlast = iw == 0, iw == W - 1
-    rep = replace.reshape(replace.shape + (1,))
-    for i in (range(L - 1, -1, -1) if rev else range(L)):
-        band = work[..., i: i + 5, :]
-        tt_center = band[..., 2, 2: 2 + W]
-        z_ok = {d: torch.tensor(0 <= i + d <= L - 1, device=dev)
-                for d in (-2, -1, 0, 1, 2)}
-        nbr, known, inb = {}, {}, {}
-        for (dz, dx) in OFFSETS:
-            db, dw = (dz, dx) if axis == "z" else (dx, dz)
-            v = band[..., 2 + db, 2 + dw: 2 + dw + W]
-            nbr[(dz, dx)] = v
-            known[(dz, dx)] = (v < INF * 0.5) & (v < tt_center)
-            inb[(dz, dx)] = z_ok[db] & wok[dw]
-        line0 = torch.tensor(i == 0, device=dev)
-        lineN = torch.tensor(i == L - 1, device=dev)
-        if axis == "z":
-            edges = dict(top=line0, bottom=lineN, left=wfirst, right=wlast)
-        else:
-            edges = dict(left=line0, right=lineN, top=wfirst, bottom=wlast)
-        veln, velpn, vel_map, stif, fbs = _line_mats(model, axis, i)
-        new = stencils.local_update(nbr, known, inb, tt_center, veln, velpn,
-                                    vel_map, stif, fbs, edges, model,
-                                    model.dnx, causal=True)
-        old_center = tt_center.clone()
-        acc_min = torch.minimum(old_center, new)
-        acc_rep = torch.where(new < INF * 0.5, new, old_center)
-        new = torch.where(rep, acc_rep, acc_min)
-        new = torch.where(fixed[..., i, :], old_center, new)
-        work[..., i + 2, 2: 2 + W] = new
+    il = torch.arange(L, device=dev)[:, None]
+    flags = torch.cat([(il + d >= 0) & (il + d <= L - 1)
+                       for d in (-2, -1, 0, 1, 2)] + [il == 0, il == L - 1],
+                      dim=1)
+    consts = (replace.reshape(replace.shape + (1,)), wok, wfirst, wlast, axis,
+              model)
+    lines = range(L - 1, -1, -1) if rev else range(L)
+
+    def inputs(i):
+        return (work[..., i: i + 5, :], flags[i], fixed[..., i, :],
+                _line_mats(model, axis, i))
+
+    run = _graphed_line(inputs(lines[0]), consts) if graphed else None
+    for i in lines:
+        band, fl, frow, mats = inputs(i)
+        work[..., i + 2, 2: 2 + W] = (
+            run(band, fl, frow, mats) if graphed
+            else _line(band, fl, frow, consts[0], mats, *consts[1:]))
     out = work[..., 2:-2, 2:-2]
     return out.transpose(-1, -2) if axis == "x" else out
 
 
 def gs_pass(tt, model: gridlib.Model, fixed, replace=False, block: int = 1,
-            inner: int = 0, use_ali: bool = True, use_fd: bool = True):
+            inner: int = 0, use_ali: bool = True, use_fd: bool = True,
+            graphed: bool = False):
     """One full pass (z-fwd, z-rev, x-fwd, x-rev) over ``tt`` (..., Z, X).
     ``replace`` is a bool or a bool tensor per source (phase-2 replace vs
     phase-1 min accumulation).  ``model`` may carry a leading batch of
-    per-source material fields."""
+    per-source material fields.  ``graphed`` (CUDA fields only) replays
+    each line's operations from a CUDA graph: the same result with far
+    less host time, for checking the kernel on large grids."""
     global CALLS
     check_form(inner=inner, use_ali=use_ali, polish_use_fd=use_fd)
+    if graphed and not tt.is_cuda:
+        raise ValueError("a graphed pass needs CUDA fields")
     CALLS += 1
     replace = torch.as_tensor(replace, device=tt.device)
     for axis, rev in (("z", False), ("z", True), ("x", False), ("x", True)):
-        tt = _sweep(tt, model, fixed, axis, rev, replace)
+        tt = _sweep(tt, model, fixed, axis, rev, replace, graphed)
     return tt.contiguous()
 
 

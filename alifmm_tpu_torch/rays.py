@@ -1,9 +1,14 @@
 """Batched Fermat ray tracing through receiver travel-time fields.
 
 Counterpart of ``alifmm_tpu/rays.py`` (the plane-search tracer): the march
-of ``trace_rays(mode="interp")`` with Simpson or crossing-walk candidate
-scoring, even/odd-wave Fermat relaxation (``relax_rays``) and exact
-sorted-crossing time integration (``ray_times``/``segment_time``).
+of ``trace_rays`` with Simpson or crossing-walk candidate scoring, even/odd-
+wave Fermat relaxation (``relax_rays``) and exact sorted-crossing time
+integration (``ray_times``/``segment_time``).  Fields are sampled bilinearly
+on the model grid (``mode="interp"``) or at the nearest point of the
+refined grid (``mode="grid"``); materials come from the unified curve
+table or, with ``exact_materials`` (and for models without curve
+indices), from the per-sample Christoffel solve; ``fast_step_scale``
+takes long strides where ``_uniform_mask`` finds the medium uniform.
 
 On CUDA tensors the march and the relaxation with the ray times run as
 hand-written kernels (``ops/cuda_rays.py``, ``csrc/rays.cu``): one launch
@@ -54,7 +59,9 @@ class MarchSpec(typing.NamedTuple):
     receiver, search-plane half width ``plane_dist`` in model cells,
     candidate spacing ``stride`` and count ``K`` per plane, the step
     budget, the candidate scorer (``cuda_rays.SIMPSON3``, ``SIMPSON5`` or
-    ``WALK``) and the walk's crossing budget."""
+    ``WALK``) and the walk's crossing budget; ``k_fast`` model cells per
+    step where the medium is uniform (0: never), and ``grid``: the fields
+    lie on the refined grid and are read at the nearest point."""
 
     s: int
     k_step: int
@@ -65,6 +72,8 @@ class MarchSpec(typing.NamedTuple):
     max_steps: int
     scorer: int
     in_cross: int
+    k_fast: int
+    grid: bool
 
 
 def _full(like, v):
@@ -98,13 +107,18 @@ def _argmin_first(val):
 
 
 def _material_flat(model: gridlib.Model, exact: bool = False):
-    """(Z*X, 4) per-cell rows (veln, vel_map, unified-curve index, 0) for
-    the segment integrators (the JAX package's fast path, whose rows are
-    the first three columns): built on the model's device, with no host
-    read, and padded so that a kernel reads a row in one aligned load."""
-    if exact or model.ray_curve_idx is None:
-        raise NotImplementedError("exact per-crossing Christoffel materials")
+    """Per-cell rows for the segment integrators, built on the model's
+    device with no host read.  Fast path: (Z*X, 4) rows (veln, vel_map,
+    unified-curve index, 0) -- the JAX package's three columns, padded so
+    that a kernel reads a row in one aligned load.  ``exact=True``, or a
+    model without curve indices: (Z*X, 8) rows (veln, velpn, vel_map,
+    c22, c23, c33, c44, rho), for the group table or the Christoffel
+    solve per sample (two aligned loads of 4)."""
     Z, X = model.shape
+    if exact or model.ray_curve_idx is None:
+        cols = [model.veln, model.velpn.to(model.dtype), model.vel_map]
+        cols += [model.stif[..., c] for c in range(5)]
+        return torch.stack(cols, dim=-1).reshape(Z * X, 8)
     cols = [model.veln, model.vel_map, model.ray_curve_idx.to(model.dtype),
             torch.zeros_like(model.veln)]
     return torch.stack(cols, dim=-1).reshape(Z * X, 4)
@@ -122,11 +136,45 @@ def mod180(x):
 
 
 def _group_velocity_cell(model, mat_row, eff):
-    """Group velocity at effective angle ``eff`` for gathered cell rows,
-    from the unified per-cell curve table."""
-    return mats.interp_table_gather(model.ray_curves, eff,
-                                    mat_row[..., 2].to(torch.int64),
-                                    mat_row[..., 1])
+    """Group velocity at effective angle ``eff`` for gathered cell rows:
+    from the unified per-cell curve table (4-column rows), or (8-column
+    rows) from the group table where velpn != 0 and by the Christoffel
+    solve elsewhere, when the model has stiffness."""
+    if mat_row.shape[-1] == 4:
+        return mats.interp_table_gather(model.ray_curves, eff,
+                                        mat_row[..., 2].to(torch.int64),
+                                        mat_row[..., 1])
+    velpn, vel_map = mat_row[..., 1], mat_row[..., 2]
+    v_tab = mats.interp_table_gather(model.group_tab, eff,
+                                     velpn.to(torch.int64), vel_map)
+    if not model.has_stif:
+        return v_tab
+    v_chr = mats.group_velocity_christoffel(
+        eff, *(mat_row[..., c] for c in range(3, 8)), vel_map)
+    return torch.where(velpn != 0, v_tab, v_chr)
+
+
+def _uniform_mask(model: gridlib.Model, radius: int):
+    """Per-cell mask, True where every material field is constant within a
+    Chebyshev ``radius`` (model cells): the medium is locally homogeneous,
+    so a straight segment through the neighbourhood is Fermat-optimal.
+    Separable max and min pools of each field in float32 with "SAME"
+    edges (cells beyond the grid do not count), on the model's device."""
+    k = 2 * radius + 1
+
+    def pool_max(f):
+        f = torch.nn.functional.max_pool2d(f, (k, 1), 1, (radius, 0))
+        return torch.nn.functional.max_pool2d(f, (1, k), 1, (0, radius))
+
+    def uniform(f):
+        f = f.to(torch.float32)[None, None]
+        return (pool_max(f) == -pool_max(-f))[0, 0]
+
+    ok = uniform(model.veln) & uniform(model.velpn) & uniform(model.vel_map)
+    if model.has_stif:
+        for c in range(5):
+            ok &= uniform(model.stif[..., c])
+    return ok
 
 
 def _angle(dx, dy):
@@ -408,19 +456,27 @@ def relax_and_times_plain(model, mat_flat, xs, ys, lengths, subgrid_size,
 
 
 def march_plain(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
-                source_xy, receiver_xy, spec: MarchSpec):
-    """Plain twin of the march kernel.  Returns (bx, by, length, reason,
-    steps): padded (R, max_steps + 2) polylines with the receiver
-    appended, their lengths, why each ray ended (0 arrived or out of
-    steps, 1 its plane left the grid, 2 its travel time rose) and the
-    number of steps each ray took before it was done."""
+                source_xy, receiver_xy, spec: MarchSpec, fast=None):
+    """Plain twin of the march kernel.  ``fast``: the (Z*X,) uniform mask
+    when ``spec.k_fast`` > 0.  Returns (bx, by, length, reason, steps):
+    padded (R, max_steps + 2) polylines with the receiver appended, their
+    lengths, why each ray ended (0 arrived or out of steps, 1 its plane
+    left the grid, 2 its travel time rose) and the number of steps each
+    ray took before it was done."""
     global PLAIN_STEPS
     Z, X = model.shape
-    s, k_step, K = spec.s, spec.k_step, spec.K
+    s, k_step, K, k_fast = spec.s, spec.k_step, spec.K, spec.k_fast
     dt = model.dtype
     dev = model.device
     R = source_xy.shape[0]
-    rows, cols = (Z - 1) * s + 1, (X - 1) * s + 1
+    TZ, TX = rec_ttf.shape[-2], rec_ttf.shape[-1]
+    if spec.grid:
+        rows, cols = TZ, TX
+    else:
+        rows, cols = (Z - 1) * s + 1, (X - 1) * s + 1
+    if k_fast > 0 and fast is None:
+        raise ValueError("a march with fast_step_scale needs the uniform "
+                         "mask")
     P = spec.max_steps + 2
     sd = spec.plane_dist * s + 1
     sd2 = (spec.plane_dist - 1) * s + 1
@@ -433,13 +489,16 @@ def march_plain(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
     rec_x = receiver_xy[:, 0].to(dt)
     rec_y = receiver_xy[:, 1].to(dt)
 
-    TZ, TX = rec_ttf.shape[-2], rec_ttf.shape[-1]
     flat_all = rec_ttf.reshape(-1)
     t_off = (ttf_index * (TZ * TX) if rec_ttf.dim() == 3
              else torch.zeros_like(ttf_index))
 
     def sample_b(x, y):
         off = t_off.reshape(t_off.shape + (1,) * (x.dim() - 1))
+        if spec.grid:
+            xi = torch.clamp(torch.round(x).to(torch.int64), 0, TX - 1)
+            yi = torch.clamp(torch.round(y).to(torch.int64), 0, TZ - 1)
+            return flat_all[off + yi * TX + xi]
         cx = torch.clamp(x / s_t, 0.0, TX - 1.0)
         cy = torch.clamp(y / s_t, 0.0, TZ - 1.0)
         x0 = torch.clamp(torch.floor(cx).to(torch.int64), 0, TX - 2)
@@ -477,9 +536,20 @@ def march_plain(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
         snap = near2 < (4.0 * s) ** 2
         vec_x = torch.where(snap, rec_x - last_x, vec_x)
         vec_y = torch.where(snap, rec_y - last_y, vec_y)
+        off_far = _full(near2, float(k_step * s))
+        if k_fast > 0:
+            # the long stride where the medium is uniform around the point
+            # and the receiver is beyond its reach
+            xi_f = torch.clamp(torch.round(last_x / s_t).to(torch.int64), 0,
+                               X - 1)
+            yi_f = torch.clamp(torch.round(last_y / s_t).to(torch.int64), 0,
+                               Z - 1)
+            fast_here = fast[yi_f * X + xi_f]
+            far = near2 >= ((k_fast + 3.0) * s) ** 2
+            off_far = torch.where(fast_here & far,
+                                  _full(near2, float(k_fast * s)), off_far)
         off = torch.where(near2 < ((k_step + 3.0) * s) ** 2,
-                          _full(near2, float(spec.near_step * s)),
-                          _full(near2, float(k_step * s)))
+                          _full(near2, float(spec.near_step * s)), off_far)
 
         dir_index = _argmax_first([
             torch.abs(vec_x),
@@ -621,11 +691,16 @@ def march_plain(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
 def march_spec(model: gridlib.Model, subgrid_size: int,
                max_steps: int | None, max_cross: int, step_scale: int,
                quad_vel: bool | int, cand_stride: float, plane_dist: int,
-               near_step: int) -> MarchSpec:
+               near_step: int, fast_step_scale: int = 0,
+               mode: str = "interp") -> MarchSpec:
     """The march's static shape from ``trace_rays``' knobs."""
+    if mode not in ("grid", "interp"):
+        raise ValueError(f"trace_rays mode {mode!r}: 'grid' or 'interp'")
     Z, X = model.shape
     s = int(subgrid_size)
     k_step = int(step_scale)
+    k_fast = int(fast_step_scale)
+    k_eff = max(k_step, k_fast)
     if max_steps is None:
         max_steps = -(-5 * (Z + X) // k_step)
     plane_dist = int(plane_dist)
@@ -633,13 +708,14 @@ def march_spec(model: gridlib.Model, subgrid_size: int,
     K = int(math.ceil(2 * (plane_dist * s + 1) / stride)) + 1
     # the walk must resolve every crossing of the longest candidate
     # segment, which spans about step + 2 cells per axis
-    in_cross = (max_cross if k_step == 1
-                else max(max_cross, 2 * (k_step + 2) + 4))
+    in_cross = (max_cross if k_eff == 1
+                else max(max_cross, 2 * (k_eff + 2) + 4))
     scorer = (cuda_rays.WALK if not quad_vel
               else cuda_rays.SIMPSON3 if quad_vel == 3
               else cuda_rays.SIMPSON5)
     return MarchSpec(s, k_step, int(near_step), plane_dist, stride, K,
-                     int(max_steps), scorer, int(in_cross))
+                     int(max_steps), scorer, int(in_cross), k_fast,
+                     mode == "grid")
 
 
 def trace_rays(
@@ -664,23 +740,24 @@ def trace_rays(
     near_step: int = 1,
 ):
     """March rays from ``source_xy`` to ``receiver_xy`` (R, 2) fine-grid
-    coordinates through the receiver fields ``rec_ttf`` (T, Z, X) on the
-    model grid, sampled bilinearly (``mode="interp"``); ``ttf_index`` (R,)
-    picks each ray's field.  Returns (ray_x, ray_y, lengths, times[,
-    reason]): padded (R, max_steps + 2) polylines including source and
-    receiver.  See the JAX package's trace_rays for the knobs.  Inputs are
-    moved to the model's device; there the march is one kernel launch and
-    the relaxation waves with the ray times another
-    (``ops/cuda_rays.py``).  Not ported yet: ``mode="grid"``,
-    ``fast_step_scale`` and ``exact_materials``."""
-    if mode != "interp":
-        raise NotImplementedError(f"trace_rays mode={mode!r}")
-    if fast_step_scale:
-        raise NotImplementedError("trace_rays fast_step_scale")
+    coordinates through the receiver fields ``rec_ttf`` (T, ...):
+    ``mode="grid"`` (the reference's path) takes fields on the refined
+    grid of ``subgrid_size`` and reads the nearest fine point;
+    ``mode="interp"`` takes fields on the model grid and samples them
+    bilinearly.  ``ttf_index`` (R,) picks each ray's field.  Returns
+    (ray_x, ray_y, lengths, times[, reason]): padded (R, max_steps + 2)
+    polylines including source and receiver.  See the JAX package's
+    trace_rays for the knobs.  Inputs are moved to the model's device;
+    there the march is one kernel launch and the relaxation waves with the
+    ray times another (``ops/cuda_rays.py``)."""
     mat_flat = _material_flat(model, exact_materials)
     dev = model.device
     spec = march_spec(model, subgrid_size, max_steps, max_cross, step_scale,
-                      quad_vel, cand_stride, plane_dist, near_step)
+                      quad_vel, cand_stride, plane_dist, near_step,
+                      fast_step_scale, mode)
+    # the JAX radius: k_fast + 4 model cells, whatever plane_dist is
+    fast = (_uniform_mask(model, spec.k_fast + 4).reshape(-1)
+            if spec.k_fast > 0 else None)
     rec_ttf = torch.as_tensor(rec_ttf).to(dev)
     ttf_index = torch.as_tensor(ttf_index)
     n_fields = rec_ttf.shape[0] if rec_ttf.dim() == 3 else 1
@@ -695,9 +772,11 @@ def trace_rays(
     receiver_xy = torch.as_tensor(receiver_xy).to(dev)
 
     bx, by, length, reason, _ = cuda_rays.march(
-        model, mat_flat, rec_ttf, ttf_index, source_xy, receiver_xy, spec)
+        model, mat_flat, rec_ttf, ttf_index, source_xy, receiver_xy, spec,
+        fast)
 
-    final_cross = max(-(-max_cross // 2) + 1, spec.k_step + 4)
+    final_cross = max(-(-max_cross // 2) + 1,
+                      max(spec.k_step, spec.k_fast) + 4)
     bx, by, times = cuda_rays.relax_and_times(
         model, mat_flat, bx, by, length, spec.s, 2 * max(relax_iters, 0),
         relax_cross=final_cross, quad=relax_quad, times_cross=final_cross)

@@ -1,12 +1,16 @@
 """Per-source travel-time fields with telescoped source refinement.
 
-Counterpart of ``alifmm_tpu/solver.py`` (the ``subgrid_size == 1`` path).
-A small window around each source is solved on a refined grid (27x, 9x,
-3x), each stage seeding the next by injecting every third point; the
-innermost window is seeded analytically with straight rays through the
-source cell; the final stage solves the whole model grid.  Every stage is
-a two-phase fixpoint of line sweeps (``ops/cuda_sweep.solve_fixpoint``:
-the sweep kernel K1 on the GPU, its plain twin on the CPU).
+Counterpart of ``alifmm_tpu/solver.py``.  A small window around each
+source is solved on a refined grid, each stage seeding the next by
+injecting every third point; the innermost window is seeded analytically
+with straight rays through the source cell; the final stage solves the
+whole grid.  With ``subgrid_size == 1`` the windows are refined 27x, 9x
+and 3x and the final grid is the model's; with ``subgrid_size = s > 1``
+(the reference's travel_finer_grid) the whole model is refined s times
+first (``grid.refine_model``, on the model's device) and the windows of
+``fine_stage_params`` are refined 9x and 3x on it.  Every stage is a
+two-phase fixpoint of line sweeps (``ops/cuda_sweep.solve_fixpoint``: the
+sweep kernel K1 on the GPU, its plain twin on the CPU).
 
 Where the JAX package vmaps over sources, this module carries an explicit
 source batch: patch models hold (B, Zp, Xp) material fields and the patch
@@ -27,7 +31,7 @@ from . import materials as mats
 from .ops import cuda_sweep
 from .ops.stencils import INF
 
-__all__ = ["SolveConfig", "solve_ttf", "coarse_stages"]
+__all__ = ["SolveConfig", "solve_ttf", "coarse_stages", "fine_stage_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +184,22 @@ def coarse_stages(cfg: SolveConfig):
     return _COARSE_STAGES[:-1] + ((cfg.stage3_half, 3),)
 
 
+# Fine-path seed sign: effective seed angle veln + angle (travel_finer_grid
+# against travel's veln - angle, a quirk of the reference kept as is).
+_FINE_SEED_SIGN = 1.0
+
+
+def fine_stage_params(subgrid_size: int):
+    """Stage schedule of the fine path for ``subgrid_size`` s: windows of
+    2s + (s - 1) // 2 and that plus 3s cells of the refined grid at 9x and
+    3x, and the analytic seed's side, in the innermost patch's points."""
+    s = subgrid_size
+    size1 = 2 * s + (s - 1) // 2
+    side1 = (9 - 1) // 2 + 9 * ((s - 1) // 2)
+    size2 = size1 + 3 * s
+    return ((size1, 9), (size2, 3)), side1
+
+
 def _source_cells(model, scx, scz):
     isx = torch.round(scx / model.dnx).to(torch.int32)
     isz = torch.round(scz / model.dnx).to(torch.int32)
@@ -279,16 +299,20 @@ def _staged_solve(base, scx, scz, stages, seed_side, seed_sign, cfg,
 def solve_ttf(model: gridlib.Model, scx, scz, subgrid_size: int = 1,
               cfg: SolveConfig = SolveConfig(), progress=None,
               return_info=False):
-    """Travel-time fields (n_src, Z, X) for sources at coordinates
-    (scx, scz) on the model grid.
+    """Travel-time fields for sources at coordinates (scx, scz): (n_src,
+    Z, X) on the model grid with ``subgrid_size == 1``, (n_src, (Z - 1) s
+    + 1, (X - 1) s + 1) on the refined grid with ``subgrid_size = s > 1``.
 
     ``progress(stage=, total=, name=, seconds=)`` is called after each
     stage, with the device synchronised first.  ``return_info=True`` also
     returns the final stage's SolveInfo (phase-1 passes, converged).
-    ``subgrid_size > 1`` (the refined-grid path) is not ported yet.
     """
-    if subgrid_size != 1:
-        raise NotImplementedError("solve_ttf with subgrid_size > 1")
-    return _staged_solve(model, scx, scz, coarse_stages(cfg),
-                         _COARSE_SEED_SIDE, _COARSE_SEED_SIGN, cfg,
+    s = int(subgrid_size)
+    if s == 1:
+        base, seed_sign = model, _COARSE_SEED_SIGN
+        stages, seed_side = coarse_stages(cfg), _COARSE_SEED_SIDE
+    else:
+        base, seed_sign = gridlib.refine_model(model, s), _FINE_SEED_SIGN
+        stages, seed_side = fine_stage_params(s)
+    return _staged_solve(base, scx, scz, stages, seed_side, seed_sign, cfg,
                          progress=progress, return_info=return_info)

@@ -29,8 +29,20 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    followed by the ray times, with the curve table and the polyline in
    shared and in device memory and through the wrapper
    ``cuda_rays.relax_and_times`` (``check_march``);
+4b. the ray kernels' fine-path instantiations against their twins on
+   48 x 56, float64 and float32 (``phase_fine_rays_vs_plain``): the
+   segment integrators on stiffness rows (the per-sample Christoffel
+   solve), and K2 with the nearest-point tap on fields solved on the
+   refined grid (s = 3), with exact materials, with both, and with
+   ``fast_step_scale`` on a model uniform away from a slow band, each
+   followed by K3 on the marched polylines where the rows are exact;
 5. analytic check at full size: homogeneous isotropic 424 x 500, one
    interior source, relative error against r / v;
+5b. K1 against its plain twin at the fine path's patch shapes (four
+   weld sources, 397 x 397 at 9x and 295 x 295 at 3x, float64 and
+   float32, one min pass at both lane counts);
+5c. the same isotropic model solved with ``subgrid_size=9`` (3808 x
+   4492) against r / v on the refined grid;
 6. the weld slice at full size in float32, 31 receiver fields and 961
    rays: first the direct path (``solve_ttf`` + ``trace_rays``; a warm-up
    run, then a timed one), then through the facade
@@ -49,7 +61,20 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
 8. K1 timed warm (CUDA events) on each stage's input of the weld solve
    (31 x 109 x 109 twice, 31 x 79 x 79, 31 x 424 x 500; float32) beside
    its bound, at its own launch shape and at every other one; one plain
-   pass at the final shape, timed and compared.
+   pass at the final shape, timed and compared;
+9. the fine weld slice in float32 (s = 9: 31 fields of 3808 x 4492, 961
+   rays): the direct path (``solve_ttf(subgrid_size=9)`` +
+   ``trace_rays(mode="grid")``; a warm-up run, then a timed one with
+   every count set to 0 just before it, its stage split, passes,
+   launches and peak device memory, and its ray times against the
+   interp-mode times of phase 6), the ray phase again with exact
+   materials, then ``ALI_FMM(ttf_mode="grid")
+   .find_all_TTF_rays_parallel(subgrid_size=9)``, timed with the counts
+   set to 0 just before it;
+10. K1 timed warm at the three stage shapes of the fine solve beside its
+   bound; K2 with the nearest-point tap, and with exact materials too, on
+   the fine fields against its twin (float32) and timed beside its bound
+   and the twin; K3 with exact materials likewise.
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``.
@@ -58,6 +83,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import re
 import subprocess
@@ -110,6 +136,12 @@ MIN_EQUAL_F32 = 0.99
 # (arctan, square root, divides) about 30, a bilinear field sample about
 # 30, a step's plane geometry about 100, an interior column about 20.
 OPS_SAMPLE, OPS_SEGMENT, OPS_BILINEAR, OPS_PLANE, OPS_COLUMN = 60, 30, 30, 100, 20
+# the nearest-point field sample (two roundings, two clamps, an index)
+# about 8; a material sample that takes the Christoffel solve adds about
+# 240, counted from materials.group_velocity_christoffel (tan, atan, two
+# cos and sin at about 20 each, four divides and two square roots at
+# about 10, some 50 more multiplies, adds, compares and selects)
+OPS_NEAREST, OPS_CHRISTOFFEL = 8, 240
 NO_LIBRARY = ("no PyTorch call computes a plane-search march or a "
               "cell-crossing integral")
 
@@ -245,12 +277,19 @@ PASS_CASES = {
 }
 
 
-def check_pass(model, tt, fixed, replace, dtype, what, configs=AUTO):
-    """One plain pass against K1 at each launch shape, on the same inputs.
-    Returns the plain result and the largest absolute difference."""
+def check_pass(model, tt, fixed, replace, dtype, what, configs=AUTO,
+               graphed=False):
+    """One plain pass against K1 at each launch shape, on the same inputs
+    (``graphed``: the twin's lines replayed from a CUDA graph).  Returns
+    the plain result and the largest absolute difference."""
     from alifmm_tpu_torch.ops import cuda_sweep, sweep
 
-    new_p = sweep.gs_pass(tt, model, fixed, replace=replace)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_p = sweep.gs_pass(tt, model, fixed, replace=replace, graphed=graphed)
+    torch.cuda.synchronize()
+    log(f"  {what}: {'graphed ' if graphed else ''}plain twin "
+        f"{time.perf_counter() - t0:.1f} s")
     dp, sp = sweep.delta_scale(new_p, tt)
     packed = cuda_sweep.pack_model(model)
     B = tt.shape[0]
@@ -275,16 +314,34 @@ def check_pass(model, tt, fixed, replace, dtype, what, configs=AUTO):
     return new_p, worst
 
 
+def check_graphed(model, tt, fixed, replace, want, what):
+    """The graphed twin (``sweep.gs_pass(graphed=True)``, which replays
+    each line's operations from a CUDA graph) against the eager twin's
+    result ``want``: the same kernels on the same values, so every bit
+    must agree.  The fine final shape is checked with the graphed twin,
+    where the eager one takes minutes a pass."""
+    from alifmm_tpu_torch.ops import sweep
+
+    got = sweep.gs_pass(tt, model, fixed, replace=replace, graphed=True)
+    same = torch.equal(got, want)
+    log(f"  {what}: graphed twin equal to the eager twin bit for bit: "
+        f"{same}")
+    check(same, f"{what}: the graphed twin differs from the eager twin")
+
+
 def check_case(name, dtype, device):
     """A min pass, then a replace pass on its result, K1 against the plain
-    twin; returns the largest absolute difference."""
+    twin, and the graphed twin against the eager one; returns the largest
+    absolute difference."""
     make, configs = PASS_CASES[name]
     model, tt, fixed = make(dtype, device)
     dname = str(dtype).replace("torch.", "")
     mid, e1 = check_pass(model, tt, fixed, False, dtype,
                          f"{name} min {dname}", configs)
-    _, e2 = check_pass(model, mid, fixed, True, dtype,
-                       f"{name} replace {dname}", configs)
+    check_graphed(model, tt, fixed, False, mid, f"{name} min {dname}")
+    out, e2 = check_pass(model, mid, fixed, True, dtype,
+                         f"{name} replace {dname}", configs)
+    check_graphed(model, mid, fixed, True, out, f"{name} replace {dname}")
     return max(e1, e2)
 
 
@@ -390,16 +447,19 @@ def worst_rel(got, want):
     return float(d.max()), float(rel.max())
 
 
-def check_segments(model_name, dtype, device, n=4096):
+def check_segments(model_name, dtype, device, n=4096, exact=False):
     """The kernels' four segment integrators against segment_time_quad3,
     segment_time_quad, _segment_time_walk and segment_time on seeded
-    segments.  Returns the largest absolute difference."""
+    segments, with the unified curve rows or (``exact``) the stiffness
+    rows of the per-sample Christoffel solve.  Returns the largest
+    absolute difference."""
     from alifmm_tpu_torch import rays
     from alifmm_tpu_torch.ops import cuda_rays
 
     model = ray_model(model_name, dtype, device)
-    mat_flat = rays._material_flat(model)
-    dname = str(dtype).replace("torch.", "")
+    mat_flat = rays._material_flat(model, exact)
+    dname = str(dtype).replace("torch.", "") + (" exact rows" if exact
+                                                else "")
     worst = 0.0
     for s in (9, 3):
         pts = seeded_segments(model.shape, s, n, 17 + s, dtype, device)
@@ -538,13 +598,15 @@ def check_k3(model, mat_flat, bx, by, length, s, cross, dtype, what,
 
 
 def march_inputs(model, knobs, s, sx, sy, pairs, dnx):
-    """(mat_flat, tidx, src_xy, rec_xy, spec, final_cross) of a march over
-    ``pairs`` with trace_rays' ``knobs`` at ``s`` fine cells per model
-    cell."""
+    """(mat_flat, tidx, src_xy, rec_xy, spec, final_cross, fast) of a
+    march over ``pairs`` with trace_rays' ``knobs`` (``mode``,
+    ``exact_materials`` and ``fast_step_scale`` among them) at ``s`` fine
+    cells per model cell; ``fast`` is the uniform mask or None."""
     from alifmm_tpu_torch import rays, weld_data
 
     kw = dict(max_steps=None, max_cross=16, step_scale=1, quad_vel=False,
-              cand_stride=1.0, plane_dist=3, near_step=1)
+              cand_stride=1.0, plane_dist=3, near_step=1, fast_step_scale=0,
+              mode="interp")
     kw.update({k: v for k, v in knobs.items() if k in kw})
     spec = rays.march_spec(model, s, **kw)
     _, _, src_xy, rec_xy, tidx = weld_data.ray_pairs(sx, sy, pairs, dnx, s)
@@ -553,10 +615,14 @@ def march_inputs(model, knobs, s, sx, sy, pairs, dnx):
     def on_dev(a, dt):
         return torch.as_tensor(a).to(dt).to(dev)
 
-    final_cross = max(-(-kw["max_cross"] // 2) + 1, spec.k_step + 4)
-    return (rays._material_flat(model), on_dev(tidx, torch.int64),
-            on_dev(src_xy, model.dtype), on_dev(rec_xy, model.dtype), spec,
-            final_cross)
+    final_cross = max(-(-kw["max_cross"] // 2) + 1,
+                      max(spec.k_step, spec.k_fast) + 4)
+    fast = (rays._uniform_mask(model, spec.k_fast + 4).reshape(-1)
+            if spec.k_fast else None)
+    mat_flat = rays._material_flat(model, knobs.get("exact_materials",
+                                                    False))
+    return (mat_flat, on_dev(tidx, torch.int64), on_dev(src_xy, model.dtype),
+            on_dev(rec_xy, model.dtype), spec, final_cross, fast)
 
 
 def check_march(knobs_name, dtype, device):
@@ -571,9 +637,9 @@ def check_march(knobs_name, dtype, device):
     scx, scz = weld_data.ray_pairs(sx, sy, pairs, dnx)[:2]
     ttfs = solver.solve_ttf(model, torch.as_tensor(scx), torch.as_tensor(scz),
                             1, solver.SolveConfig(**SOLVE_KW))
-    mat_flat, tidx, src, rec, spec, final_cross = march_inputs(
+    mat_flat, tidx, src, rec, spec, final_cross, fast = march_inputs(
         model, *MARCH_KNOBS[knobs_name], sx, sy, pairs, dnx)
-    args = (model, mat_flat, ttfs, tidx, src, rec, spec)
+    args = (model, mat_flat, ttfs, tidx, src, rec, spec, fast)
     want = rays.march_plain(*args)
     what = f"48x56 {knobs_name} {str(dtype).replace('torch.', '')}"
     errs = march_vs_twin(args, want, final_cross, dtype, what)
@@ -589,7 +655,7 @@ def march_vs_twin(args, want, final_cross, dtype, what):
     the march's differences by key."""
     from alifmm_tpu_torch.ops import cuda_rays
 
-    model, mat_flat, spec = args[0], args[1], args[-1]
+    model, mat_flat, spec = args[0], args[1], args[6]
     vertex, equal = 0.0, 1.0
     runs = []
     for shared in (True, False):
@@ -754,7 +820,7 @@ def phase_slice(device):
     arrived = (reason == 0) & (lengths - 2 < RAY_OPTS["max_steps"])
     check(int(arrived.sum()) == 961,
           f"only {int(arrived.sum())} of 961 rays arrive")
-    return inputs, ttfs, (wall, t_solve, t_rays)
+    return inputs, ttfs, times, (wall, t_solve, t_rays)
 
 
 def phase_facade(device):
@@ -858,7 +924,7 @@ def plain_march(args):
     from alifmm_tpu_torch import rays
     from alifmm_tpu_torch.ops import cuda_rays
 
-    spec = args[-1]
+    spec = args[6]
     name = {cuda_rays.WALK: "_segment_time_walk",
             cuda_rays.SIMPSON3: "segment_time_quad3",
             cuda_rays.SIMPSON5: "segment_time_quad"}[spec.scorer]
@@ -875,10 +941,26 @@ def plain_march(args):
         setattr(rays, name, scorer)
     steps = want[4]
     total = torch.zeros(5, dtype=torch.float64, device=steps.device)
+    model, mat_flat = args[0], args[1]
+    stiff = (mat_flat[:, 1] == 0 if mat_flat.shape[1] == 8 and model.has_stif
+             else None)
+    fracs = {cuda_rays.SIMPSON3: (0.0, 0.5, 1.0),
+             cuda_rays.SIMPSON5: (0.0, 0.25, 0.5, 0.75, 1.0)}.get(
+                 spec.scorer, (0.5,))
+    chr_hits = chr_all = 0
     for k, (x1, y1, x2, y2) in enumerate(calls):
         live = torch.ones(x2.shape, dtype=torch.bool, device=x2.device)
         live[:, 1:] = (x2[:, 1:] != x2[:, :-1]) | (y2[:, 1:] != y2[:, :-1])
         live &= (steps > k)[:, None]
+        if stiff is not None:
+            # the cells the Simpson samples (the walk: the midpoints) hit
+            for f in fracs:
+                xi = torch.round((x1 + (x2 - x1) * f) / spec.s).long().clamp(
+                    0, model.shape[1] - 1)
+                yi = torch.round((y1 + (y2 - y1) * f) / spec.s).long().clamp(
+                    0, model.shape[0] - 1)
+                chr_hits += int((stiff[yi * model.shape[1] + xi] & live).sum())
+                chr_all += int(live.sum())
         if spec.scorer == cuda_rays.WALK:
             n = walk_crossings(x1, y1, x2, y2, spec.s, spec.in_cross)
         else:
@@ -890,12 +972,14 @@ def plain_march(args):
             torch.where(live, n, 0).sum(), (live & (n > 8)).sum()]).double()
     work = dict(zip(("steps", "candidates", "columns", "samples",
                      "second_round"), (int(v) for v in total.tolist())))
+    work["christoffel_share"] = chr_hits / chr_all if chr_all else 0.0
     check(work["steps"] == int(steps.sum()), "march work: steps miscounted")
     log(f"  march twin {ms:.1f} ms; the kernel's work: {work['steps']} "
         f"steps, {work['candidates']} candidates scored "
         f"({work['candidates'] / work['steps']:.2f} a step, K = {spec.K}), "
         f"{work['samples']} material samples "
-        f"({work['samples'] / work['candidates']:.3f} a candidate); "
+        f"({work['samples'] / work['candidates']:.3f} a candidate, "
+        f"{work['christoffel_share']:.3f} of them Christoffel solves); "
         f"candidates past 8 crossings: {work['second_round']}")
     return ms, want, work
 
@@ -920,21 +1004,33 @@ def ray_bounds(model, mat_flat, ttfs, spec, work, bx, by, length,
     and n_k - 2 interior columns a step; K3 is the sum of its ``waves``
     waves (each moving vertex scores 6 segments of ``relax_samples``
     material samples) and its ray times (real segments x set-up +
-    crossing intervals x one material sample)."""
+    crossing intervals x one material sample).
+
+    With the nearest-point tap (``spec.grid``) a scored candidate reads
+    one field cell and its sample costs OPS_NEAREST.  With 8-column rows
+    (exact materials) the velocity table is the group table, and the share
+    of material samples in stiffness cells (``work["christoffel_share"]``
+    for the march; for K3 the share of its vertices' cells) adds
+    OPS_CHRISTOFFEL each."""
     item = ttfs.element_size()
     R, P = bx.shape
     K = spec.K
     row = mat_flat.shape[1] * item
     all_rows = mat_flat.shape[0] * row
-    curves = model.ray_curves.numel() * item
+    exact = mat_flat.shape[1] == 8
+    table = model.group_tab if exact else model.ray_curves
+    curves = min(table.shape[0], 181) * table.shape[1] * item
     n_steps = work["steps"]
     span = int((K - 1) * spec.stride / spec.s) + 2
     fan = (min(-(-work["samples"] // work["candidates"]),
                spec.plane_dist + 1) * span // 2 + 1)
+    sample_ops = OPS_SAMPLE + work.get("christoffel_share", 0.0) * OPS_CHRISTOFFEL
     march_ops = (n_steps * OPS_PLANE + work["columns"] * OPS_COLUMN
-                 + work["candidates"] * (OPS_BILINEAR + OPS_SEGMENT)
-                 + work["samples"] * OPS_SAMPLE)
-    march_bytes = (min(ttfs.numel(), n_steps * 2 * span) * item
+                 + work["candidates"] * ((OPS_NEAREST if spec.grid
+                                          else OPS_BILINEAR) + OPS_SEGMENT)
+                 + work["samples"] * sample_ops)
+    field_cells = work["candidates"] if spec.grid else n_steps * 2 * span
+    march_bytes = (min(ttfs.numel(), field_cells) * item
                    + min(all_rows, n_steps * fan * row) + curves
                    + (4 * R + 2 * R * P) * item + 4 * R * 8)
     vidx = torch.arange(P, device=bx.device)[None, :]
@@ -948,8 +1044,15 @@ def ray_bounds(model, mat_flat, ttfs, spec, work, bx, by, length,
              + (by[:, 1:] - by[:, :-1]).abs()) / spec.s + 1
     crossed_rows = min(all_rows, int(cross[real].sum()) * row)
     intervals = float(cross.clamp_max(2 * final_cross + 1)[real].sum())
-    k3_ops = (moving * (6 * (OPS_SEGMENT + relax_samples * OPS_SAMPLE) + 40)
-              + int(real.sum()) * OPS_SEGMENT + intervals * OPS_SAMPLE)
+    k3_sample = OPS_SAMPLE
+    if exact and model.has_stif:
+        Z, X = model.shape
+        xi = torch.round(bx / spec.s).long().clamp(0, X - 1)
+        yi = torch.round(by / spec.s).long().clamp(0, Z - 1)
+        stiff = (mat_flat[:, 1] == 0)[yi * X + xi][:, :-1]
+        k3_sample += float(stiff[real].double().mean()) * OPS_CHRISTOFFEL
+    k3_ops = (moving * (6 * (OPS_SEGMENT + relax_samples * k3_sample) + 40)
+              + int(real.sum()) * OPS_SEGMENT + intervals * k3_sample)
     k3_bytes = (crossed_rows + curves + (2 * R * P * (2 if waves else 1)
                                          + R) * item + R * 8)
     log(f"  bounds: march {n_steps} steps, {2 * span} field cells and {fan} "
@@ -986,46 +1089,54 @@ def time_host(fn):
 def time_march(args, n):
     """K2 on ``args`` (float32), warm: the bare launch with its outputs
     allocated beforehand and the call through its wrapper (CUDA events
-    over n calls), the longest ray's steps, the step split by part (the
-    clock64 build, on the longest ray), the blocks resident per SM and a
-    march of every 8th ray."""
+    over n calls), the longest ray's steps, the blocks resident per SM and
+    a march of every 8th ray; with the unified curves and the bilinear
+    tap, also the step split by part (the clock64 build, on the longest
+    ray), which exists for that build only."""
     from alifmm_tpu_torch.ops import cuda_rays
 
+    spec = args[6]
     p = cuda_rays.prepare_march(*args)
     bare = time_events(p.run, n)
     wrapper = time_events(lambda: cuda_rays.march(*args), n)
     steps = p.out[4]
     chain = int(steps.max())
-    pp = cuda_rays.prepare_march(*args, profile=True)
-    pp.run()
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(pp.out[:5], p.out)),
-          "the march's profiling build marched otherwise")
-    cyc = pp.out[5][int(torch.argmax(steps))].double()
-    split = dict(zip(("scoring", "reduction", "rest"),
-                     (cyc / cyc.sum()).tolist()))
-    warps = cuda_rays.occupancy(p, args[-1].scorer, torch.float32) * 4
     us = bare * 1e3 / chain
+    split = None
+    if (p.plan["mat_kind"], p.plan["tap"]) == (cuda_rays.MAT_CURVES,
+                                                cuda_rays.TAP_BILINEAR):
+        pp = cuda_rays.prepare_march(*args, profile=True)
+        pp.run()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(pp.out[:5], p.out)),
+              "the march's profiling build marched otherwise")
+        cyc = pp.out[5][int(torch.argmax(steps))].double()
+        split = dict(zip(("scoring", "reduction", "rest"),
+                         (cyc / cyc.sum()).tolist()))
+    warps = cuda_rays.occupancy(p, spec.scorer, torch.float32) * 4
     # the same march over every 8th ray, fewer than one block an SM: what
     # a step takes when its warps do not share the SM's issue slots
     few = [a[::8].contiguous() for a in args[3:6]]
-    pf = cuda_rays.prepare_march(*args[:3], *few, args[-1])
+    pf = cuda_rays.prepare_march(*args[:3], *few, *args[6:])
     us_alone = time_events(pf.run, n) * 1e3 / int(pf.out[4].max())
+    parts = ("" if split is None else
+             f", of which scoring {split['scoring']:.3f}, reduction "
+             f"{split['reduction']:.3f}, the rest {split['rest']:.3f} "
+             f"(clock64 on that ray: {us * split['scoring']:.3f} / "
+             f"{us * split['reduction']:.3f} / {us * split['rest']:.3f} us)")
     log(f"  K2 {bare:.4f} ms bare, {wrapper:.4f} ms through the wrapper, for "
-        f"{args[3].shape[0]} rays (K = {args[-1].K}, {p.plan['lanes']} lanes "
+        f"{args[3].shape[0]} rays (K = {spec.K}, {p.plan['lanes']} lanes "
         f"a ray, curves in {'shared' if p.plan['curves_smem'] else 'device'}"
         f" memory, {p.plan['smem']} B); the longest ray takes {chain} "
-        f"dependent steps: {us:.3f} us a step, of which scoring "
-        f"{split['scoring']:.3f}, reduction {split['reduction']:.3f}, the "
-        f"rest {split['rest']:.3f} (clock64 on that ray: "
-        f"{us * split['scoring']:.3f} / {us * split['reduction']:.3f} / "
-        f"{us * split['rest']:.3f} us); all rays {int(steps.sum())} steps; "
-        f"{warps} warps resident per SM; every 8th ray alone: "
-        f"{us_alone:.3f} us a step")
-    return dict(ms=bare, wrapper_ms=wrapper, chain=chain, us_per_step=us,
-                us_per_step_few_rays=us_alone, step_split=split,
-                lanes=p.plan["lanes"], warps_per_sm=warps,
-                steps=int(steps.sum()))
+        f"dependent steps: {us:.3f} us a step{parts}; all rays "
+        f"{int(steps.sum())} steps; {warps} warps resident per SM; every "
+        f"8th ray alone: {us_alone:.3f} us a step")
+    out = dict(ms=bare, wrapper_ms=wrapper, chain=chain, us_per_step=us,
+               us_per_step_few_rays=us_alone, lanes=p.plan["lanes"],
+               warps_per_sm=warps, steps=int(steps.sum()))
+    if split is not None:
+        out["step_split"] = split
+    return out
 
 
 def time_k3(model, mat_flat, bx, by, length, s, kw, n=10):
@@ -1072,9 +1183,9 @@ def phase_ray_kernels_weld(inputs, ttfs, worst, device):
         model = (inputs[0] if dtype == torch.float32
                  else ray_model("weld", dtype, device))
         fields = ttfs.to(dtype)
-        mat_flat, tidx, src, rec, spec, final_cross = march_inputs(
+        mat_flat, tidx, src, rec, spec, final_cross, fast = march_inputs(
             model, *MARCH_KNOBS["weld knobs"], sx, sy, pairs, dnx)
-        args = (model, mat_flat, fields, tidx, src, rec, spec)
+        args = (model, mat_flat, fields, tidx, src, rec, spec, fast)
         ms_twin, want, work = plain_march(args)
         what = f"weld {str(dtype).replace('torch.', '')}"
         merge_worst(worst, march_vs_twin(args, want, final_cross, dtype,
@@ -1112,9 +1223,9 @@ def check_default_march(model, ttfs, worst, geometry):
     differences go into ``worst``."""
     from alifmm_tpu_torch import rays
 
-    mat_flat, tidx, src, rec, spec, final_cross = march_inputs(
+    mat_flat, tidx, src, rec, spec, final_cross, fast = march_inputs(
         model, dict(), 9, *geometry)
-    args = (model, mat_flat, ttfs, tidx, src, rec, spec)
+    args = (model, mat_flat, ttfs, tidx, src, rec, spec, fast)
     t_plain, want, work = plain_march(args)
     merge_worst(worst, march_vs_twin(args, want, final_cross, torch.float32,
                                      "weld, facade defaults, float32"))
@@ -1239,6 +1350,565 @@ def phase_pass_timing(inputs):
     return shapes, ms_p, abs_e
 
 
+# --------------------------------------------------------------------- #
+# The fine-grid path: solve_ttf(subgrid_size > 1), trace_rays(mode="grid"),
+# exact materials and fast strides
+# --------------------------------------------------------------------- #
+
+# The ray kernels' new paths against their twins on 48 x 56: (trace_rays
+# knobs, fine cells per model cell, model, whether the fields lie on the
+# refined grid).  The fast-stride case takes tests/test_rays_r5.py's
+# knobs on a model that is uniform away from a slow band.
+FINE_MARCH_CASES = {
+    "grid tap, facade defaults": (dict(mode="grid"), 3, "48x56", True),
+    "grid tap, weld knobs": (dict(RAY_OPTS, mode="grid"), 3, "48x56", True),
+    "exact materials, weld knobs": (dict(RAY_OPTS, exact_materials=True), 9,
+                                    "48x56", False),
+    "exact materials, facade defaults": (dict(exact_materials=True), 3,
+                                         "48x56", False),
+    "grid tap and exact materials, weld knobs": (
+        dict(RAY_OPTS, mode="grid", exact_materials=True), 3, "48x56", True),
+    "grid tap and exact materials, Simpson 5": (
+        dict(mode="grid", quad_vel=True, exact_materials=True), 3, "48x56",
+        True),
+    "fast stride": (dict(step_scale=2, fast_step_scale=6, max_steps=80,
+                         quad_vel=3), 3, "slow band", False),
+}
+
+
+def slow_band_model(dtype, device):
+    """48 x 56 isotropic 3000 m/s with a slow band (1500 m/s) across row
+    24: the fast-stride mask is True away from the band, False near it."""
+    from alifmm_tpu_torch import grid
+
+    Z, X = 48, 56
+    vel = 3000.0 * np.ones((Z, X))
+    vel[24] = 1500.0
+    return grid.make_model(np.zeros((Z, X)), np.ones((Z, X), dtype=int), vel,
+                           None, None, None, 2e-4, dtype=dtype, device=device)
+
+
+def check_fine_march(case, dtype, device):
+    """One case of FINE_MARCH_CASES: fields solved on the card (on the
+    refined grid for the grid tap), K2 against march_plain (bare launches
+    with the tables in shared and in device memory, and through the
+    wrapper), then K3 on the twin's polylines with every scorer.  Returns
+    the largest differences by kernel."""
+    from alifmm_tpu_torch import rays, solver, weld_data
+
+    knobs, s, model_name, fine = FINE_MARCH_CASES[case]
+    model = (small_model(dtype, device) if model_name == "48x56"
+             else slow_band_model(dtype, device))
+    dnx = float(model.dnx)
+    sx, sy, pairs = weld_data.transducers(model.shape, dnx, 5, 10)
+    scx, scz = weld_data.ray_pairs(sx, sy, pairs, dnx)[:2]
+    ttfs = solver.solve_ttf(model, torch.as_tensor(scx), torch.as_tensor(scz),
+                            s if fine else 1, solver.SolveConfig(**SOLVE_KW))
+    mat_flat, tidx, src, rec, spec, final_cross, fast = march_inputs(
+        model, knobs, s, sx, sy, pairs, dnx)
+    if fast is not None:
+        share = float(fast.double().mean())
+        check(0.0 < share < 1.0, f"{case}: uniform mask share {share}")
+    args = (model, mat_flat, ttfs, tidx, src, rec, spec, fast)
+    want = rays.march_plain(*args)
+    what = f"48x56 {case} {str(dtype).replace('torch.', '')}"
+    log(f"  {what}: fields {tuple(ttfs.shape)}, rows of "
+        f"{mat_flat.shape[1]} columns"
+        + ("" if fast is None else f", uniform mask share {share:.3f}"))
+    errs = march_vs_twin(args, want, final_cross, dtype, what)
+    if mat_flat.shape[1] == 8:
+        merge_worst(errs, check_k3(model, mat_flat, *want[:3], spec.s,
+                                   final_cross, dtype, what,
+                                   single_waves=False))
+    return errs
+
+
+def phase_fine_rays_vs_plain(device):
+    """(a): the segment integrators on stiffness rows, and K2 and K3 on
+    every case of FINE_MARCH_CASES, in float64 and float32."""
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        for name in RAY_MODELS:
+            merge_worst(worst, dict(segments=check_segments(
+                name, dtype, device, exact=True)))
+        for case in FINE_MARCH_CASES:
+            merge_worst(worst, check_fine_march(case, dtype, device))
+    return worst
+
+
+def fine_weld_patches(half, factor, dtype, device):
+    """Per-source patches of the fine weld (four sources, on the top and
+    the bottom) with the fine path's analytic seed (side 40, sign +1):
+    half 22 at 9x gives the first stage's 397 x 397, half 49 at 3x the
+    second stage's 295 x 295."""
+    from alifmm_tpu_torch import grid, solver, weld_data
+
+    fine = grid.refine_model(ray_model("weld", dtype, device),
+                             weld_data.SUBGRID)
+    scx = torch.tensor([60.0, 180.0, 320.0, 440.0], dtype=dtype,
+                       device=device) * weld_data.DNX
+    scz = torch.tensor([0.0, 0.0, 423.0, 423.0], dtype=dtype,
+                       device=device) * weld_data.DNX
+    isz, isx = solver._source_cells(fine, scx, scz)
+    hz, hx, bz, bx = solver._window(fine, isz, isx, half)
+    patches = solver._slice_model(fine, bz, bx, hz, hx, factor)
+    side = solver.fine_stage_params(weld_data.SUBGRID)[1]
+    tt, fixed = solver._analytic_seed(
+        patches, fine, isz, isx, (isz - bz) * factor, (isx - bx) * factor,
+        side, solver._FINE_SEED_SIGN)
+    return patches, tt, fixed
+
+
+FINE_PASS_CASES = {
+    "fine patches 397x397": lambda dt, dev: fine_weld_patches(22, 9, dt, dev),
+    "fine patches 295x295": lambda dt, dev: fine_weld_patches(49, 3, dt, dev),
+}
+
+
+def phase_fine_k1_vs_plain(device):
+    """(b): K1 against its plain twin at the fine path's patch shapes, four
+    sources, float64 and float32: one min pass from the analytic seed at
+    both lane counts.  The twin is the graphed one, which phase 3 holds
+    equal to the eager twin bit for bit (5-7 s a pass here, the eager one
+    about 50 s)."""
+    worst = 0.0
+    for dtype in (torch.float64, torch.float32):
+        for name, make in FINE_PASS_CASES.items():
+            model, tt, fixed = make(dtype, device)
+            _, e = check_pass(model, tt, fixed, False, dtype,
+                              f"{name} min {str(dtype)[6:]}", graphed=True)
+            worst = max(worst, e)
+    return worst
+
+
+def phase_analytic_fine(device):
+    """(c): solve_ttf(subgrid_size=9) on the 424 x 500 isotropic model of
+    phase_analytic, one interior source, against r / v on the refined
+    grid (3808 x 4492), to the bounds of tests/test_analytic_truth.py."""
+    from alifmm_tpu_torch import grid, solver
+
+    Z, X, dnx, v, s = 424, 500, 2e-4, 5790.0, 9
+    model = grid.make_model(np.zeros((Z, X)), np.ones((Z, X), dtype=int),
+                            v * np.ones((Z, X)), None, None, None, dnx,
+                            dtype=torch.float32, device=device)
+    sz, sx = 212, 250
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tt, info = solver.solve_ttf(model, torch.tensor([sx * dnx]),
+                                torch.tensor([sz * dnx]), s,
+                                solver.SolveConfig(), return_info=True)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = tt[0].double()
+    FZ, FX = got.shape
+    check((FZ, FX) == ((Z - 1) * s + 1, (X - 1) * s + 1),
+          f"fine field shape {(FZ, FX)}")
+    zz = torch.arange(FZ, dtype=torch.float64, device=device)[:, None]
+    xx = torch.arange(FX, dtype=torch.float64, device=device)[None, :]
+    want = (dnx / s) * torch.hypot(zz - sz * s, xx - sx * s) / v
+    mask = want > 0
+    rel = (got - want).abs()[mask] / want[mask]
+    mx, mean = float(rel.max()), float(rel.mean())
+    log(f"  isotropic 424x500 at s = 9 ({FZ}x{FX}): rel err max {mx:.4e} "
+        f"mean {mean:.4e} (bounds {ANALYTIC_MAX}, {ANALYTIC_MEAN}); final "
+        f"passes {info.passes} converged {info.converged}; {sec:.3f} s")
+    check(bool(torch.isfinite(got).all()), "fine analytic field not finite")
+    check(mx < ANALYTIC_MAX and mean < ANALYTIC_MEAN,
+          "fine analytic error out of bounds")
+    return dict(max_rel=mx, mean_rel=mean, passes=int(info.passes),
+                seconds=sec)
+
+
+def run_fine_slice(inputs, progress=None, exact=False):
+    """The fine weld slice directly: solve_ttf(subgrid_size=9), then
+    trace_rays(mode="grid") with the weld's knobs."""
+    from alifmm_tpu_torch import rays, solver, weld_data
+
+    model, scx, scz, src_xy, rec_xy, tidx = inputs
+    cfg = solver.SolveConfig(**SOLVE_KW)
+    t0 = time.perf_counter()
+    ttfs, info = solver.solve_ttf(model, scx, scz, weld_data.SUBGRID, cfg,
+                                  progress=progress, return_info=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = rays.trace_rays(model, ttfs, tidx, src_xy, rec_xy,
+                          weld_data.SUBGRID, mode="grid", return_reason=True,
+                          exact_materials=exact, **RAY_OPTS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return ttfs, info, out, (t1 - t0, t2 - t1, t2 - t0)
+
+
+def check_rays_arrive(out, what):
+    """961 rays with finite positive times that arrived; otherwise fail
+    with how many did not and why."""
+    bx, by, lengths, times, reason = out
+    check(times.shape == (961,), f"{what}: times shape {tuple(times.shape)}")
+    reasons = {int(k): int(v) for k, v in
+               zip(*np.unique(reason.cpu().numpy(), return_counts=True))}
+    arrived = (reason == 0) & (lengths - 2 < RAY_OPTS["max_steps"])
+    ok_t = torch.isfinite(times) & (times > 0)
+    log(f"  {what}: rays by reason (0 arrived, 1 plane left grid, 2 "
+        f"truncated) {reasons}; arrived within the step budget "
+        f"{int(arrived.sum())}; finite positive times {int(ok_t.sum())}")
+    check(int(arrived.sum()) == 961 and bool(ok_t.all()),
+          f"{what}: {961 - int(arrived.sum())} of 961 rays did not arrive "
+          f"(reasons {reasons}), {961 - int(ok_t.sum())} times not finite "
+          f"and positive")
+
+
+def time_gap(got, want):
+    """(max, median) of |got - want| / want over the rays."""
+    rel = ((got.double() - want.double()).abs() / want.double()).cpu()
+    return float(rel.max()), float(rel.median())
+
+
+def phase_fine_slice(inputs, coarse_times):
+    """(d): the fine weld slice (31 fields of 3808 x 4492, 961 rays, f32):
+    the direct path warm-up, then timed with the counts set to 0 just
+    before it, with its stage split, passes, launches and peak device
+    memory; its ray times against the interp-mode times of the coarse
+    slice; the ray phase again with exact materials on the same fields
+    (the solve does not depend on them), timed; then through the facade
+    (ALI_FMM(ttf_mode="grid").find_all_TTF_rays_parallel, warm), timed
+    with the counts set to 0 just before it."""
+    from alifmm_tpu_torch import rays, weld_data
+    from alifmm_tpu_torch.ops.stencils import INF
+
+    t0 = time.perf_counter()
+    run_fine_slice(inputs)
+    log(f"  warm-up run {time.perf_counter() - t0:.3f} s")
+    stages = []
+
+    def rec(stage, total, name, seconds):
+        stages.append((name, seconds))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ttfs, info, out, (t_solve, t_rays, wall) = run_fine_slice(inputs, rec)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  direct fine weld slice warm wall clock {wall:.4f} s (solve "
+        f"{t_solve:.4f} s, rays {t_rays:.4f} s); peak device memory "
+        f"{peak:.3f} GB")
+    for name, sec in stages:
+        log(f"    stage [{name}] {sec:.4f} s")
+    log(f"  final stage passes {info.passes} converged {info.converged}")
+    log(f"  launches and plain-twin counts: {counts}")
+    check_counts(counts, "the direct fine weld slice")
+    FZ, FX = (424 - 1) * 9 + 1, (500 - 1) * 9 + 1
+    check(tuple(ttfs.shape) == (31, FZ, FX),
+          f"fine field shape {tuple(ttfs.shape)}")
+    check(bool(torch.isfinite(ttfs).all()) and bool((ttfs < INF * 0.5).all()),
+          "fine weld fields not finite everywhere")
+    check_rays_arrive(out, "fine slice, grid mode")
+    gmax, gmed = time_gap(out[3], coarse_times)
+    log(f"  ray times, grid mode (s = 9 fields) against interp mode (model-"
+        f"grid fields): max rel {gmax:.4e}, median rel {gmed:.4e}")
+
+    model, _, _, src_xy, rec_xy, tidx = inputs
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex = rays.trace_rays(model, ttfs, tidx, src_xy, rec_xy, weld_data.SUBGRID,
+                         mode="grid", return_reason=True,
+                         exact_materials=True, **RAY_OPTS)
+    torch.cuda.synchronize()
+    t_exact = time.perf_counter() - t0
+    ex_counts = read_counts()
+    check(ex_counts["march"] == 1 and ex_counts["relax_times"] == 1
+          and ex_counts["plain_steps"] == 0,
+          f"the exact-material rays launched {ex_counts}")
+    check_rays_arrive(ex, "fine slice, grid mode, exact materials")
+    emax, emed = time_gap(ex[3], out[3])
+    log(f"  exact materials: ray phase {t_exact:.4f} s; ray times against "
+        f"the unified curves': max rel {emax:.4e}, median rel {emed:.4e}")
+
+    fa = phase_fine_facade(out[3])
+    return dict(ttfs=ttfs, out=out, wall=wall, solve=t_solve, rays=t_rays,
+                stages=stages, passes=int(info.passes),
+                converged=bool(info.converged), counts=counts, peak_gb=peak,
+                gap_max=gmax, gap_median=gmed, exact_rays=t_exact,
+                exact_gap_max=emax, exact_gap_median=emed, **fa)
+
+
+def phase_fine_facade(direct_times):
+    """The fine slice through ALI_FMM(ttf_mode="grid")
+    .find_all_TTF_rays_parallel(subgrid_size=9), after the direct path's
+    warm-up, with every count set to 0 just before the call."""
+    import alifmm_tpu_torch
+    from alifmm_tpu_torch import weld_data
+
+    alifmm_tpu_torch.tqdm_disable = True
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    fm = alifmm_tpu_torch.ALI_FMM(veln, velpn, vel_map, sx, sy, stif_den=stif,
+                                  dnx=dnx, ray_opts=RAY_OPTS,
+                                  solve_opts=SOLVE_KW, ttf_mode="grid")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tmat = fm.find_all_TTF_rays_parallel(veln, velpn, vel_map,
+                                         subgrid_size=weld_data.SUBGRID,
+                                         stif_den=stif, trans_pairs=pairs,
+                                         n_threads=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"  facade (ttf_mode='grid', subgrid_size=9) {wall:.4f} s; launches "
+        f"and plain-twin counts: {counts}")
+    check_counts(counts, "the facade's fine weld run")
+    top, bottom = slice(0, 31), slice(31, 62)
+    check(tmat.shape == (62, 62), f"time matrix shape {tmat.shape}")
+    block = tmat[top, bottom]
+    check(bool(np.isfinite(tmat).all()) and bool((block > 0).all()),
+          "fine top-to-bottom ray times not finite and positive")
+    rest = tmat.copy()
+    rest[top, bottom] = 0
+    check(not rest.any(), "time matrix not zero outside the traced pairs")
+    d = np.abs(block.reshape(-1) - direct_times.double().cpu().numpy())
+    rel = float((d / block.reshape(-1)).max())
+    log(f"  facade ray times against the direct path's: max rel {rel:.3e}")
+    check(rel <= 1e-6, "the facade's fine ray times differ from the direct "
+          "path's")
+    return dict(facade_wall=wall, facade_counts=counts)
+
+
+def fine_stage_inputs(inputs):
+    """Each stage's K1 input in the fine weld solve, as
+    solver._staged_solve builds them on the refined model: (name, model,
+    field, fixed)."""
+    from alifmm_tpu_torch import grid, solver, weld_data
+
+    model, scx, scz = inputs[:3]
+    fine = grid.refine_model(model, weld_data.SUBGRID)
+    cfg = solver.SolveConfig(**SOLVE_KW)
+    stages, side = solver.fine_stage_params(weld_data.SUBGRID)
+    isz, isx = solver._source_cells(fine, scx, scz)
+    out = []
+    tt = bz = bx = None
+    for k, (half, factor) in enumerate(stages):
+        hz, hx, nbz, nbx = solver._window(fine, isz, isx, half)
+        patches = solver._slice_model(fine, nbz, nbx, hz, hx, factor)
+        if k == 0:
+            t0, fixed = solver._analytic_seed(
+                patches, fine, isz, isx, (isz - nbz) * factor,
+                (isx - nbx) * factor, side, solver._FINE_SEED_SIGN)
+        else:
+            t0, fixed = solver._inject(tt, bz, bx, 3 * factor, patches.shape,
+                                       nbz, nbx, factor, fine.shape)
+        Z, X = patches.shape
+        out.append((f"fine s{k + 1} patches {Z}x{X}", patches, t0, fixed))
+        tt, _ = solver._patch_solve(t0, patches, fixed, cfg)
+        bz, bx = nbz, nbx
+    zero = torch.zeros_like(bz)
+    t0, fixed = solver._inject(tt, bz, bx, 3, fine.shape, zero, zero, 1,
+                               fine.shape)
+    Z, X = fine.shape
+    out.append((f"fine final {Z}x{X}", fine, t0, fixed))
+    return out
+
+
+def as_float64(model):
+    """The model with its floating tensors in float64."""
+    return dataclasses.replace(model, **{
+        f.name: getattr(model, f.name).double()
+        for f in dataclasses.fields(model)
+        if isinstance(getattr(model, f.name), torch.Tensor)
+        and getattr(model, f.name).is_floating_point()})
+
+
+def known_gap(a, b):
+    """|a - b| (float64) where both are known, else 0."""
+    from alifmm_tpu_torch.ops.stencils import INF
+
+    a, b = a.double(), b.double()
+    both = (a < INF * 0.5) & (b < INF * 0.5)
+    return torch.where(both, (a - b).abs(), 0.0)
+
+
+def k1_fine_float64(model, tt0, fixed, packed):
+    """One K1 pass in float64 at the fine final shape, where the field
+    stack (31 x 3808 x 4492 x 8 B = 4.2 GB) passes 2^31 bytes and one CTA
+    fits an SM.  The last source's field, which starts 4.1 GB into the
+    stack, must equal bit for bit the pass over that source alone (the
+    same launch shape, C = 8, G = 4, at offset 0).  The float32 pass on
+    the same input is compared with it source by source; the source with
+    the largest gap is returned for k1_fine_vs_twin."""
+    from alifmm_tpu_torch.ops import cuda_sweep
+    from alifmm_tpu_torch.ops.stencils import INF
+
+    f64 = as_float64(model)
+    B = tt0.shape[0]
+    p64 = cuda_sweep.pack_model(f64)
+    t64 = tt0.double()
+    ms, out64 = time_k1(t64, fixed, p64, n=1)
+    one = np.zeros(1, bool), np.ones(1, bool)
+    last, _, _ = cuda_sweep._launch(t64[-1:].contiguous(),
+                                    fixed[-1:].contiguous(), p64, *one)
+    out32, _, _ = cuda_sweep._launch(tt0, fixed, packed, np.zeros(B, bool),
+                                     np.ones(B, bool))
+    torch.cuda.synchronize()
+    abs_last, _ = rel_err(out64[-1:], last)
+    gaps = torch.stack([known_gap(out32[b], out64[b]).max()
+                        for b in range(B)])
+    worst = int(torch.argmax(gaps))
+    scale = float(out64[out64 < INF * 0.5].max())
+    log(f"  fine final K1 float64 ({t64.numel() * 8 / 1e9:.2f} GB field "
+        f"stack) {ms:.1f} ms per pass; the last source against its pass "
+        f"alone: max abs {abs_last:.3e} (must be 0); the float32 pass "
+        f"against it: max abs {float(gaps.max()):.3e} s "
+        f"({float(gaps.max()) / scale:.3e} of the field's largest time), "
+        f"largest in source {worst}; sources with a gap over 1e-3 of that "
+        f"time: {int((gaps > 1e-3 * scale).sum())} of {B}")
+    check(abs_last == 0.0, "K1 float64 at the fine final shape: the last "
+          "source differs from its pass alone")
+    del f64, p64, t64, out64, out32, last
+    return dict(ms=ms, max_abs_last_source_alone=abs_last,
+                max_abs_vs_float32_over_scale=float(gaps.max()) / scale,
+                worst_source=worst)
+
+
+def k1_fine_vs_twin(model, tt0, fixed, b):
+    """(b) at the fine final shape, for source ``b`` alone: one min pass of
+    K1 (at the wrapper's own launch shape, and with 8 lanes) against the
+    graphed plain twin, in float32 and float64, max abs 0.  Then where the
+    float32 and float64 passes differ most, with both twins' values
+    there."""
+    from alifmm_tpu_torch.ops import cuda_sweep
+
+    tt1, fx1 = tt0[b:b + 1].contiguous(), fixed[b:b + 1].contiguous()
+    Z, X = tt1.shape[1:]
+    C, G = cuda_sweep.launch_config(1, Z, X, cuda_sweep._sm_count(
+        tt1.device))
+    outs, res = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        m = model if dtype == torch.float32 else as_float64(model)
+        name = str(dtype)[6:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, e = check_pass(m, tt1.to(dtype), fx1, False, dtype,
+                            f"fine final {Z}x{X} source {b} min {name}",
+                            graphed=True)
+        sec = time.perf_counter() - t0
+        log(f"  fine final {Z}x{X} source {b} {name}: graphed twin and two "
+            f"K1 passes {sec:.1f} s (launch_config C={C} G={G})")
+        check(e == 0.0, f"K1 at the fine final shape, source {b}, {name}: "
+              f"max abs {e:.3e} against the twin (must be 0)")
+        outs[name], res[name] = out[0], dict(max_abs=e, seconds=sec)
+        del m, out
+    gap = known_gap(outs["float32"], outs["float64"])
+    k = int(torch.argmax(gap))
+    z, x = divmod(k, X)
+    v32, v64 = float(outs["float32"][z, x]), float(outs["float64"][z, x])
+    log(f"  source {b}, one min pass: float32 against float64 max abs "
+        f"{float(gap.max()):.3e} s at (z, x) = ({z}, {x}); twin (= K1) "
+        f"float64 {v64:.9e} s, float32 {v32:.9e} s")
+    res.update(cluster=C, lanes=G, gap_at=(z, x), gap_float64=v64,
+               gap_float32=v32)
+    return res
+
+
+def gap_by_pass(model, tt0, fixed, b, min_passes=16, polish=2):
+    """Why float32 and float64 differ after one pass: K1 passes for source
+    ``b`` from the same injected state in both types (min passes, then
+    replace passes, as the final stage runs them), the largest gap after
+    each pass beside the float64 pass-to-pass delta.  A gap that shrinks as
+    the passes converge comes from values not yet settled, where a
+    candidate's acceptance flips between the types; a fault would not
+    shrink."""
+    from alifmm_tpu_torch.ops import cuda_sweep
+
+    a = tt0[b:b + 1].contiguous()
+    fx1 = fixed[b:b + 1].contiguous()
+    b64 = a.double()
+    p32 = cuda_sweep.pack_model(model)
+    p64 = cuda_sweep.pack_model(as_float64(model))
+    one = np.ones(1, bool)
+    out = []
+    for k in range(min_passes + polish):
+        rep = np.full(1, k >= min_passes)
+        a, _, _ = cuda_sweep._launch(a, fx1, p32, rep, one)
+        b_new, d64, s64 = cuda_sweep._launch(b64, fx1, p64, rep, one)
+        b64 = b_new
+        gap = known_gap(a, b64)
+        out.append(dict(passes=k + 1, gap=float(gap.max()),
+                        delta64=float(d64[0]), scale64=float(s64[0])))
+    log("  source %d, float32 against float64 after each pass (gap, float64 "
+        "delta), s: %s" % (b, "; ".join(
+            f"{r['passes']}{'r' if r['passes'] > min_passes else ''} "
+            f"{r['gap']:.2e} {r['delta64']:.2e}" for r in out)))
+    z, x = divmod(int(torch.argmax(gap)), a.shape[-1])
+    log(f"  after the last pass the gap sits at (z, x) = ({z}, {x}): float64 "
+        f"{float(b64[0, z, x]):.9e} s, float32 {float(a[0, z, x]):.9e} s; "
+        f"the source's largest time {out[-1]['scale64']:.6e} s")
+    return out
+
+
+def phase_fine_timing(inputs, fine):
+    """(e): K1 warm at every stage shape of the fine weld solve (float32)
+    beside its bound; at the final shape a float64 pass, then the source
+    where it differs most from the float32 pass checked alone against the
+    twin and followed pass by pass (k1_fine_vs_twin, gap_by_pass); K2 with the nearest-point tap and with exact
+    materials at the weld shape (on the fine fields just solved) against
+    their twins and timed beside their bounds; K3 with exact materials
+    likewise."""
+    from alifmm_tpu_torch import rays, weld_data
+    from alifmm_tpu_torch.ops import cuda_sweep
+
+    shapes = []
+    for name, model, tt0, fixed in fine_stage_inputs(inputs):
+        packed = cuda_sweep.pack_model(model)
+        B, Z, X = tt0.shape
+        C, G = cuda_sweep.launch_config(B, Z, X, cuda_sweep._sm_count(
+            tt0.device))
+        n = 3 if Z * X > 1e6 else 10
+        ms, _ = time_k1(tt0, fixed, packed, n=n)
+        bound, by = bound_ms(tt0, fixed, packed)
+        log(f"  {name} ({B} sources) K1 {ms:.4f} ms per pass at C={C} G={G} "
+            f"({n} passes); bound {bound:.4f} ms ({by}), share "
+            f"{bound / ms:.4f}")
+        shapes.append(dict(stage=name, sources=B, cluster=C, lanes=G, ms=ms,
+                           bound_ms=bound, bound_by=by))
+        if Z * X > 1e6:
+            f64 = k1_fine_float64(model, tt0, fixed, packed)
+            b = f64["worst_source"]
+            shapes[-1].update(float64=f64,
+                              vs_twin=k1_fine_vs_twin(model, tt0, fixed, b),
+                              gap_by_pass=gap_by_pass(model, tt0, fixed, b))
+        del packed, tt0, fixed
+
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    model, ttfs = inputs[0], fine["ttfs"]
+    out = {}
+    for key, knobs in (("grid_tap", dict(RAY_OPTS, mode="grid")),
+                       ("grid_tap_exact_materials",
+                        dict(RAY_OPTS, mode="grid", exact_materials=True))):
+        mat_flat, tidx, src, rec, spec, final_cross, fast = march_inputs(
+            model, knobs, weld_data.SUBGRID, sx, sy, pairs, dnx)
+        args = (model, mat_flat, ttfs, tidx, src, rec, spec, fast)
+        ms_twin, want, work = plain_march(args)
+        errs = march_vs_twin(args, want, final_cross, torch.float32,
+                             f"weld {key} float32")
+        k2 = time_march(args, 10)
+        k2["plain_ms"] = ms_twin
+        bx, by, length = want[:3]
+        waves = 2 * RAY_OPTS["relax_iters"]
+        bounds = ray_bounds(model, mat_flat, ttfs, spec, work, bx, by,
+                            length, final_cross, waves)
+        out[key] = dict(march=with_bound(k2, bounds["march"]), errs=errs)
+        if mat_flat.shape[1] == 8:
+            kw = dict(waves=waves, relax_cross=final_cross,
+                      quad=RAY_OPTS["relax_quad"], times_cross=final_cross)
+            errs.update(check_k3(model, mat_flat, bx, by, length, spec.s,
+                                 final_cross, torch.float32,
+                                 f"weld {key} float32", iters=(1,),
+                                 single_waves=False))
+            out[key]["relax_times"] = with_bound(
+                time_k3(model, mat_flat, bx, by, length, spec.s, kw),
+                bounds["relax_times"])
+    return shapes, out
+
+
 SCORER_NAMES = {0: "simpson3", 1: "simpson5", 2: "walk", 3: "exact"}
 
 
@@ -1310,6 +1980,8 @@ def ray_kernel_entry(name, replaces, launches, errs, timed, defaults, regs,
                           if k.startswith(stem + "<f")},
         "spill_bytes_f32": max([v[1] for k, v in regs.items()
                                 if k.startswith(stem + "<f")] or [0]),
+        "spill_bytes_f64": max([v[1] for k, v in regs.items()
+                                if k.startswith(stem + "<d")] or [0]),
     }
     return entry
 
@@ -1332,11 +2004,18 @@ def main():
     worst = phase_kernel_vs_plain(device)
     log("[4] ray kernels (K2, K3) against their plain twins")
     ray_worst = phase_rays_vs_plain(device)
+    log("[4b] the ray kernels' fine-path instantiations against their plain "
+        "twins: nearest-point tap, exact materials, fast strides")
+    merge_worst(ray_worst, phase_fine_rays_vs_plain(device))
     log("[5] analytic check at full size")
     phase_analytic(device)
+    log("[5b] K1 against its plain twin at the fine path's patch shapes")
+    fine_k1_worst = phase_fine_k1_vs_plain(device)
+    log("[5c] analytic check on the refined grid (s = 9)")
+    analytic_fine = phase_analytic_fine(device)
     log("[6] weld slice (31 fields, 961 rays, float32): direct path, then "
         "through the facade")
-    inputs, ttfs, (wall, t_solve, t_rays) = phase_slice(device)
+    inputs, ttfs, coarse_times, (wall, t_solve, t_rays) = phase_slice(device)
     counts, facade_wall, t_builds = phase_facade(device)
     log(f"  weld slice warm wall clock: facade {facade_wall:.4f} s (its two "
         f"model builds {t_builds:.4f} s, the rest "
@@ -1349,6 +2028,28 @@ def main():
         "at the final shape")
     shapes, ms_p, abs_e = phase_pass_timing(inputs)
     final = shapes[-1]
+    log("[9] the fine weld slice (s = 9: 31 fields of 3808 x 4492, 961 rays, "
+        "float32): direct, with exact materials, through the facade")
+    fine = phase_fine_slice(inputs, coarse_times)
+    log("[10] K1 at the fine stage shapes, beside its bound, and against "
+        "its twin for one source at the final shape; K2 and K3 on the fine "
+        "fields, beside their bounds")
+    fine_shapes, fine_rays = phase_fine_timing(inputs, fine)
+    for key in fine_rays:
+        merge_worst(ray_worst, fine_rays[key].pop("errs"))
+    vs_twin = fine_shapes[-1]["vs_twin"]
+    fine_k1_worst = max(fine_k1_worst, vs_twin["float32"]["max_abs"],
+                        vs_twin["float64"]["max_abs"])
+    fc = fine["counts"]
+    log(f"  fine weld slice: direct {fine['wall']:.4f} s (solve "
+        f"{fine['solve']:.4f} s, rays {fine['rays']:.4f} s; stages "
+        + ", ".join(f"{n} {t:.4f} s" for n, t in fine["stages"])
+        + f"), final passes {fine['passes']} converged {fine['converged']}, "
+        f"launches K1 {fc['sweep_pass']} K2 {fc['march']} K3 "
+        f"{fc['relax_times']}, peak device memory {fine['peak_gb']:.3f} GB; "
+        f"facade {fine['facade_wall']:.4f} s; exact-material rays "
+        f"{fine['exact_rays']:.4f} s; grid against interp ray times max rel "
+        f"{fine['gap_max']:.4e} median {fine['gap_median']:.4e}")
 
     check("jax" not in sys.modules, "jax was imported")
     kernels = [{
@@ -1357,7 +2058,7 @@ def main():
         "source": "alifmm_tpu_torch/csrc/sweep.cu",
         "replaces": "alifmm_tpu/ops/pallas_sweep.py:124",
         "launches": counts["sweep_pass"],
-        "max_abs_err": max(worst, abs_e),
+        "max_abs_err": max(worst, abs_e, fine_k1_worst),
         "ms": final["ms"],
         "plain_ms": ms_p,
         "bound_ms": final["bound_ms"],
@@ -1365,13 +2066,22 @@ def main():
         "library_ms": None,
         "cluster": final["cluster"],
         "lanes": final["lanes"],
-        "shapes": shapes,
+        "shapes": shapes + fine_shapes,
+        "launches_fine_slice": fc["sweep_pass"],
+        "fine_slice": {k: fine[k] for k in (
+            "wall", "solve", "rays", "passes", "converged", "peak_gb",
+            "facade_wall", "exact_rays", "gap_max", "gap_median")},
+        "analytic_fine": analytic_fine,
     }]
     defaults = weld["facade defaults"]
     kernels.append(ray_kernel_entry(
         "K2 ray march", "alifmm_tpu/rays.py:728", counts["march"],
         dict(max_abs_err=ray_worst["march"],
-             rays_equal_share=1.0 - ray_worst["march_unequal"]),
+             rays_equal_share=1.0 - ray_worst["march_unequal"],
+             launches_fine_slice=fc["march"],
+             grid_tap=fine_rays["grid_tap"]["march"],
+             grid_tap_exact_materials=fine_rays[
+                 "grid_tap_exact_materials"]["march"]),
         weld["march"], defaults["march"], regs, "march_kernel"))
     kernels.append(ray_kernel_entry(
         "K3 relaxation waves and ray times", "alifmm_tpu/rays.py:445",
@@ -1379,7 +2089,10 @@ def main():
         dict(max_abs_err=ray_worst["relax_vertices"],
              max_abs_err_times=ray_worst["relax_times"],
              max_rel_err_times=ray_worst["relax_times_rel"],
-             also_replaces="alifmm_tpu/rays.py:333"),
+             also_replaces="alifmm_tpu/rays.py:333",
+             launches_fine_slice=fc["relax_times"],
+             exact_materials=fine_rays["grid_tap_exact_materials"][
+                 "relax_times"]),
         weld["relax_times"], defaults["relax_times"], regs,
         "relax_times_kernel"))
     print(card, flush=True)

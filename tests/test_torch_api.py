@@ -23,6 +23,7 @@ from alifmm_tpu import solver as jsolver
 from alifmm_tpu_torch import rays as trays
 from alifmm_tpu_torch import solver as tsolver
 from alifmm_tpu_torch import weld_data
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPE = (48, 56)
 STAGES = ((1, 9), (2, 3))
@@ -126,8 +127,13 @@ def test_attributes_match_jax_facade(world):
 
 
 def test_update_with_sources_mask_matches_jax(world):
+    """The mask selects the three receivers of the ray tests below, so
+    that the port's facades share one solve (``_shared_solves``) and the
+    JAX facades one compiled program of three sources.  A facade whose
+    transducers are listed in another order then selects the same three
+    with an interleaved mask: each field lands at its source's place."""
     jf, tf = _facades(world)
-    mask = np.array([1, 0, 1, 0, 0, 1])
+    mask = np.array([0, 0, 0, 1, 1, 1])
     want = jf.update(*_model_args(world), stif_den=world["stif"],
                      sources=mask)
     got = tf.update(*_model_args(world), stif_den=world["stif"],
@@ -135,6 +141,14 @@ def test_update_with_sources_mask_matches_jax(world):
     assert got.dtype == np.float64 and got.shape == (6,) + SHAPE
     assert np.all(got[mask == 0] == 0) and np.all(got[mask == 1].max((1, 2)) > 0)
     np.testing.assert_allclose(got, want, rtol=RTOL_FIELDS, atol=0)
+
+    order = np.array([3, 0, 4, 1, 2, 5])
+    _, tf2 = _facades(dict(world, sx=world["sx"][order],
+                           sy=world["sy"][order]))
+    mask2 = np.array([1, 0, 1, 0, 0, 1])
+    got2 = tf2.update(*_model_args(world), stif_den=world["stif"],
+                      sources=mask2)
+    np.testing.assert_array_equal(got2, got[order] * mask2[:, None, None])
 
 
 def test_update_i_matches_jax(world):
@@ -319,7 +333,6 @@ def test_update_parallel_low_mem_writes_fields(world, tmp_path, monkeypatch):
 @pytest.mark.parametrize("kw, where", [
     (dict(ray_opts=dict(tracer="descent")), "call"),
     (dict(ray_opts=dict(tracer="auto")), "call"),
-    (dict(ttf_mode="grid"), "init"),
     (dict(grid_mesh=object()), "init"),
 ])
 def test_waiting_modes_raise_not_implemented(world, kw, where):

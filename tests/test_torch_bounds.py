@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import chip_smoke
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def walk_steps_taken(x1, y1, x2, y2, s, max_cross):

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch twins on a CUDA device:
-K1 (csrc/sweep.cu) and the ray kernels K2 and K3 (csrc/rays.cu).
+K1 (csrc/sweep.cu) and the ray kernels K2 and K3 (csrc/rays.cu), with
+their fine-path instantiations (nearest-point tap, exact materials,
+fast-stride mask).
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip without a
 card; on the card, ``python3 chip_smoke.py`` runs the same comparisons (it
@@ -42,6 +44,22 @@ def test_march_relax_and_times_match_plain_twins(device, dtype, knobs):
     and 0, 1 and 2 wave pairs followed by the ray times, with the tables
     in shared and in device memory."""
     chip_smoke.check_march(knobs, dtype, device)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.FINE_MARCH_CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fine_path_march_matches_plain_twin(device, dtype, case):
+    """K2's fine-path instantiations on 48 x 56: the nearest-point tap on
+    fields of the refined grid, the per-sample Christoffel materials (then
+    K3 on the marched polylines), and the fast-stride mask."""
+    chip_smoke.check_fine_march(case, dtype, device)
+
+
+@pytest.mark.parametrize("model", chip_smoke.RAY_MODELS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_exact_segment_integrators_match_plain_twins(device, dtype, model):
+    """The four integrators on the stiffness rows of exact_materials."""
+    chip_smoke.check_segments(model, dtype, device, exact=True)
 
 
 def test_ray_wrappers_reject_mismatched_tensors(device):

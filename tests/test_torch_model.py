@@ -11,6 +11,7 @@ from alifmm_tpu import grid as jgrid
 from alifmm_tpu import materials as jmats
 from alifmm_tpu_torch import grid as tgrid
 from alifmm_tpu_torch import weld_data
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-12  # host precompute is the same numpy code: ulp-level only
 

@@ -1,6 +1,7 @@
 """PyTorch port, rays: trace_rays(mode="interp") with the production knobs
-and with the walk scorer, relax_rays, ray_times, K3's composed twin and the
-segment integrators against the JAX package on the same fields and model
+and with the walk scorer, the grid mode, exact materials and the adaptive
+stride, relax_rays, ray_times, K3's composed twin and the segment
+integrators against the JAX package on the same fields and model
 (float64), the first-wins selections on inputs built to tie, the in-place
 waves on which K3 rests, and the kernels' floor-mod by 180."""
 
@@ -8,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from alifmm_tpu import grid as jgrid
@@ -16,6 +18,7 @@ from alifmm_tpu_torch import grid as tgrid
 from alifmm_tpu_torch import rays as trays
 from alifmm_tpu_torch import weld_data
 from alifmm_tpu_torch.ops import cuda_rays
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-9  # same float64 operations; sums may reassociate (ulps)
 S = weld_data.SUBGRID
@@ -235,15 +238,83 @@ def test_segment_integrators_match_jax(setup):
            np.asarray(jrays.segment_time_quad(jm, jmf, *jp, S)), "simpson5")
 
 
-def test_unported_modes_raise(setup):
+def _fine_fields(scx, scz, seed):
+    """``_fields`` on the grid refined S times (fine-grid units)."""
+    Z, X = ((SHAPE[0] - 1) * S + 1, (SHAPE[1] - 1) * S + 1)
+    zz, xx = np.meshgrid(np.arange(Z), np.arange(X), indexing="ij")
+    rng = np.random.default_rng(seed)
+    fields = []
+    for cx, cz in zip(scx, scz):
+        r = np.hypot(zz - S * cz / weld_data.DNX, xx - S * cx / weld_data.DNX)
+        bump = 1.0 + 0.05 * np.sin(zz / (7.0 * S) + rng.uniform(0, 6)) * np.cos(
+            xx / (9.0 * S))
+        fields.append(weld_data.DNX / S * r * bump / 5790.0)
+    return np.stack(fields)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="grid", quad_vel=3),
+    dict(mode="interp", exact_materials=True),
+    dict(mode="interp", quad_vel=3, fast_step_scale=12),
+], ids=["grid", "exact materials", "fast stride"])
+def test_unported_modes_raise(setup, kw):
+    """The three modes that raised NotImplementedError before the fine
+    path was ported now run and match the JAX package: the nearest-point
+    tap on fields of the refined grid, the per-sample Christoffel
+    materials (with the walk scorer; fields of seed 10, where compiled JAX
+    agrees with itself uncompiled: see the next test), and the adaptive
+    stride with its uniform mask."""
     jm, tm, ttfs, src_xy, rec_xy, tidx = setup
-    args = (tm, torch.from_numpy(ttfs), torch.from_numpy(tidx),
-            torch.from_numpy(src_xy), torch.from_numpy(rec_xy), S)
-    for kw in (dict(mode="grid", quad_vel=3),
-               dict(mode="interp", exact_materials=True),
-               dict(mode="interp", quad_vel=3, fast_step_scale=12)):
-        with pytest.raises(NotImplementedError):
-            trays.trace_rays(*args, **kw)
+    sx, sy, pairs = weld_data.transducers(SHAPE, weld_data.DNX, 3, 15)
+    receivers = weld_data.ray_pairs(sx, sy, pairs)[:2]
+    if kw["mode"] == "grid":
+        ttfs = _fine_fields(*receivers, seed=7)
+    elif kw.get("exact_materials"):
+        ttfs = _fields(*receivers, seed=10)
+    want = jrays.trace_rays(jm, jnp.asarray(ttfs), jnp.asarray(tidx),
+                            jnp.asarray(src_xy), jnp.asarray(rec_xy), S,
+                            return_reason=True, **kw)
+    got = trays.trace_rays(tm, torch.from_numpy(ttfs), torch.from_numpy(tidx),
+                           torch.from_numpy(src_xy), torch.from_numpy(rec_xy),
+                           S, return_reason=True, **kw)
+    wx, wy, wlen, wt, wr = (np.asarray(a) for a in want)
+    gx, gy, glen, gt, gr = (a.numpy() for a in got)
+    np.testing.assert_array_equal(glen, wlen)
+    np.testing.assert_array_equal(gr, wr)
+    _close(gx, wx, "ray_x")
+    _close(gy, wy, "ray_y")
+    _close(gt, wt, "times")
+    assert wlen.min() > 3 and np.all(wt > 0)
+
+
+@pytest.mark.parametrize("seed", [7, 9])
+def test_exact_walk_matches_uncompiled_jax(setup, seed):
+    """The exact-materials case above on fields of seeds 7 and 9, against
+    the JAX package run without jit.  Compiled, JAX's walk scores some
+    axis-aligned candidate segments about 5x too low when it scores a batch
+    of candidates (from (383.0765, 9) to (374, 9) it gives 6.588e-09 s
+    instead of 3.210e-08 s, the value it gives for that segment alone and
+    uncompiled), and one ray of seed 7 and two of seed 9 then turn towards
+    such a candidate.  The port follows the uncompiled functions."""
+    jm, tm, _, src_xy, rec_xy, tidx = setup
+    sx, sy, pairs = weld_data.transducers(SHAPE, weld_data.DNX, 3, 15)
+    ttfs = _fields(*weld_data.ray_pairs(sx, sy, pairs)[:2], seed=seed)
+    kw = dict(mode="interp", exact_materials=True, return_reason=True)
+    with jax.disable_jit():
+        want = jrays.trace_rays(jm, jnp.asarray(ttfs), jnp.asarray(tidx),
+                                jnp.asarray(src_xy), jnp.asarray(rec_xy), S,
+                                **kw)
+    got = trays.trace_rays(tm, torch.from_numpy(ttfs), torch.from_numpy(tidx),
+                           torch.from_numpy(src_xy), torch.from_numpy(rec_xy),
+                           S, **kw)
+    wx, wy, wlen, wt, wr = (np.asarray(a) for a in want)
+    gx, gy, glen, gt, gr = (a.numpy() for a in got)
+    np.testing.assert_array_equal(glen, wlen)
+    np.testing.assert_array_equal(gr, wr)
+    _close(gx, wx, "ray_x")
+    _close(gy, wy, "ray_y")
+    _close(gt, wt, "times")
+    assert wlen.min() > 3 and np.all(wt > 0)
 
 
 @pytest.mark.parametrize("max_cross", [16, 5])
@@ -285,8 +356,10 @@ def test_trace_rays_walk_scorer_matches_jax(setup, knobs):
     """quad_vel=False (the facade's default): candidates scored by the
     crossing walk, at 3 fine cells per model cell.  JAX's CPU build
     contracts the walk's multiply-adds, so the two walks differ in their
-    last bits (1e-14 relative); the fields' seed is one where no two
-    candidate minima are that close."""
+    last bits (1e-14 relative).  On fields of seed 7 compiled JAX
+    mis-scores an axis-aligned candidate and two rays part ways (JAX
+    uncompiled equals the port there: see
+    test_exact_walk_matches_uncompiled_jax); seed 8 has no such step."""
     jm, tm, _, src_xy, rec_xy, tidx = setup
     sx, sy, pairs = weld_data.transducers(SHAPE, weld_data.DNX, 3, 15)
     ttfs = _fields(*weld_data.ray_pairs(sx, sy, pairs)[:2], seed=8)

@@ -14,6 +14,7 @@ from alifmm_tpu_torch import grid as tgrid
 from alifmm_tpu_torch import rays as trays
 from alifmm_tpu_torch import solver as tsolver
 from alifmm_tpu_torch import weld_data
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL_FIELDS = 1e-9
 RTOL_TIMES = 1e-8  # end to end: field ulps feed the march's candidate argmin

@@ -1,6 +1,7 @@
 """PyTorch port, solver: the telescoped staged solve against the JAX
 package (float64) on the 48 x 56 problem of __graft_entry__, three sources
-(two on an edge), small budgets so the per-line CPU twin stays cheap."""
+(two on an edge), small budgets so the per-line CPU twin stays cheap; and
+the fine path (subgrid_size = 3) on a crop of it."""
 
 import numpy as np
 import pytest
@@ -9,10 +10,12 @@ import torch
 import jax.numpy as jnp
 
 import __graft_entry__ as graft
+from alifmm_tpu import grid as jgrid
 from alifmm_tpu import solver as jsolver
 from alifmm_tpu_torch import grid as tgrid
 from alifmm_tpu_torch import solver as tsolver
 from alifmm_tpu_torch.ops.stencils import INF
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-9  # same float64 operations: ulps, no tie flips
 STAGES = ((1, 9), (2, 3))
@@ -85,9 +88,34 @@ def test_patch_stages_per_source_convergence(problem):
 
 
 def test_unported_paths_raise(problem):
+    """solve_ttf(subgrid_size=3), which raised NotImplementedError before
+    the fine path was ported, against the JAX package's, with the uncut
+    fine schedule (patches of 127 x 127 at 9x and 97 x 97 at 3x, seed sign
+    +1) on a 13 x 11 crop of the problem with stiffness and table cells,
+    one pass a patch stage; the parallel-in-block sweeps (patch_inner)
+    still raise."""
     jm, tm, scx, scz = problem
-    with pytest.raises(NotImplementedError):
-        tsolver.solve_ttf(tm, torch.from_numpy(scx), torch.from_numpy(scz), 3)
+    rows, cols = slice(10, 23), slice(14, 25)
+    arrays = [np.asarray(getattr(jm, n))[rows, cols]
+              for n in ("veln", "velpn", "vel_map", "stif")]
+    dnx = float(jm.dnx)
+    jcrop = jgrid.make_model(*arrays, None, None, dnx, dtype=jnp.float64)
+    tcrop = tgrid.make_model(*arrays, None, None, dnx, dtype=torch.float64,
+                             device="cpu")
+    x, z = dnx * np.array([3.0, 7.0]), dnx * np.array([0.0, 6.0])
+    budget = dict(patch_max_passes=1, polish_passes=0, final_max_passes=2,
+                  final_polish_passes=1)
+    want, winfo = jsolver.solve_ttf(
+        jcrop, x, z, 3, jsolver.SolveConfig(**budget, sweep_block=1,
+                                            patch_block=1), return_info=True)
+    got, info = tsolver.solve_ttf(tcrop, torch.from_numpy(x),
+                                  torch.from_numpy(z), 3,
+                                  tsolver.SolveConfig(**budget),
+                                  return_info=True)
+    assert got.shape == (2, 37, 31)
+    _assert_fields(got.numpy(), np.asarray(want))
+    assert (info.passes, info.converged) == (int(winfo.passes),
+                                             bool(winfo.converged))
     with pytest.raises(NotImplementedError):
         tsolver._stage_first(tm, torch.from_numpy(scx), torch.from_numpy(scz),
                              1, 9, SEED_SIDE, -1.0,

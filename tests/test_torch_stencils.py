@@ -15,6 +15,7 @@ from alifmm_tpu.ops import stencils as jst
 from alifmm_tpu_torch import grid as tgrid
 from alifmm_tpu_torch import weld_data
 from alifmm_tpu_torch.ops import stencils as tst
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-10  # the same arithmetic in another framework: ulps, no tie flips
 

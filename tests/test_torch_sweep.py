@@ -17,6 +17,7 @@ from alifmm_tpu.ops import sweep as jsweep
 from alifmm_tpu_torch import grid as tgrid
 from alifmm_tpu_torch.ops import cuda_sweep
 from alifmm_tpu_torch.ops import sweep as tsweep
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL_F64 = 1e-9   # same operations in float64: ulps, no tie flips
 RTOL_PALLAS = 1e-4  # the kernel's folded-coefficient velocity and
@@ -112,6 +113,18 @@ def test_unported_forms_raise(f64):
                dict(polish_use_fd=False), dict(use_ali=False)):
         with pytest.raises(NotImplementedError):
             tsweep.solve_fixpoint(t, tm, f, **kw)
+
+
+def test_graphed_pass_needs_cuda_fields(f64):
+    """gs_pass(graphed=True) replays CUDA graphs; on CPU fields it raises
+    and leaves the pass count alone (chip_smoke.py holds it to the eager
+    pass on the card)."""
+    jm, tm, tt0, fixed = f64
+    calls = tsweep.CALLS
+    with pytest.raises(ValueError, match="CUDA"):
+        tsweep.gs_pass(torch.from_numpy(tt0), tm, torch.from_numpy(fixed),
+                       graphed=True)
+    assert tsweep.CALLS == calls
 
 
 def test_plain_twin_matches_pallas_kernel(monkeypatch):

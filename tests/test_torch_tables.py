@@ -16,6 +16,7 @@ from alifmm_tpu_torch import grid as tgrid
 from alifmm_tpu_torch import materials as tmats
 from alifmm_tpu_torch import weld_data
 from alifmm_tpu_torch.utils import validate as tvalidate
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-12
 # (c22, c23, c33, c44) in Pa and density: austenitic weld metal, a
