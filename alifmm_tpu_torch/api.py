@@ -18,9 +18,13 @@ solves the receiver fields on the model grid and samples them bilinearly;
 ``"grid"`` solves them on the grid refined ``subgrid_size`` times, as the
 reference's travel_finer_grid does, and reads the nearest fine point.
 
+``ray_opts["tracer"]`` picks the tracer: ``"search"`` (the default, the
+plane search ``rays.trace_rays``), ``"descent"`` (``trace_rays_descent``)
+or ``"auto"`` (``trace_rays_auto``: the descent, with the plane search for
+the rays it cannot certify); the other keys are the tracer's knobs.
+
 Waiting in ROADMAP.md's queue and raising NotImplementedError here:
-``grid_mesh`` (the sharded solve), and the ``"descent"`` and ``"auto"``
-tracers.
+``grid_mesh`` (the sharded solve).
 """
 
 from __future__ import annotations
@@ -41,15 +45,12 @@ from .utils import validate
 
 __all__ = ["ALI_FMM"]
 
-# trace_rays' arguments that are not knobs
+# the tracers' arguments that are not knobs
 _POSITIONAL = {"model", "rec_ttf", "ttf_index", "source_xy", "receiver_xy",
                "subgrid_size", "mode"}
-# knobs of the JAX package's tracers this port does not have yet
-# (alifmm_tpu/rays.py: trace_rays_descent, trace_rays_auto): a key only
-# they accept is dropped with a warning rather than refused
-_DESCENT_KNOBS = {"max_steps", "max_cross", "step_scale", "relax_iters",
-                  "relax_quad", "return_reason", "score_k", "score_stride"}
-_AUTO_KNOBS = {"tol", "retrace_chunk", "descent_kw", "search_kw"}
+_TRACERS = {"search": rayslib.trace_rays,
+            "descent": rayslib.trace_rays_descent,
+            "auto": rayslib.trace_rays_auto}
 
 
 class ALI_FMM:
@@ -226,14 +227,46 @@ class ALI_FMM:
     # ------------------------------------------------------------------ #
     @staticmethod
     def _route_ray_opts(tracer, trace_fn, opts):
-        """Filter the flat ``ray_opts`` knobs for the selected tracer: knobs
-        that only another tracer accepts are dropped with a warning, keys
-        no tracer accepts raise TypeError."""
-        accepted = set(inspect.signature(trace_fn).parameters) - _POSITIONAL
-        any_params = accepted | _DESCENT_KNOBS | _AUTO_KNOBS
-        unknown = [k for k in opts if k not in any_params]
+        """Filter the flat ``ray_opts`` knobs for the selected tracer.  For
+        ``"auto"`` a knob goes into ``descent_kw`` and ``search_kw``,
+        whichever of the two tracers accepts it, and explicit entries of
+        those two win.  Knobs that only another tracer accepts are dropped
+        with a warning; keys no tracer accepts raise TypeError."""
+
+        def params(fn):
+            return set(inspect.signature(fn).parameters) - _POSITIONAL
+
+        d_params = params(rayslib.trace_rays_descent)
+        s_params = params(rayslib.trace_rays)
+        a_params = params(rayslib.trace_rays_auto)
+        unknown = [k for k in opts if k not in d_params | s_params | a_params]
         if unknown:
             raise TypeError(f"unknown ray_opts key(s): {unknown}")
+
+        if tracer == "auto":
+            routed = {k: v for k, v in opts.items() if k in a_params}
+            descent_kw = dict(routed.pop("descent_kw", None) or {})
+            search_kw = dict(routed.pop("search_kw", None) or {})
+            dropped = []
+            for k, v in opts.items():
+                if k in a_params:
+                    continue
+                if k in d_params:
+                    descent_kw.setdefault(k, v)
+                if k in s_params:
+                    search_kw.setdefault(k, v)
+                if k not in d_params | s_params:
+                    dropped.append(k)
+            if dropped:
+                warnings.warn(
+                    f"ray_opts {dropped} not accepted by tracer='auto'; "
+                    "dropped", stacklevel=3,
+                )
+            routed["descent_kw"] = descent_kw
+            routed["search_kw"] = search_kw
+            return routed
+
+        accepted = params(trace_fn)
         dropped = [k for k in opts if k not in accepted]
         if dropped:
             warnings.warn(
@@ -245,16 +278,10 @@ class ALI_FMM:
     def _solve_rays(self, veln, velpn, vel_map, stif_den, subgrid_size,
                     trans_pairs, save_rays):
         # tracer="search" (default) is the plane-search march; flat knobs
-        # are routed to it before anything is solved
+        # are routed to the selected tracer before anything is solved
         opts = dict(self._ray_opts)
         tracer = opts.pop("tracer", "search")
-        if tracer in ("descent", "auto"):
-            raise NotImplementedError(
-                f"tracer={tracer!r} is not ported yet: ROADMAP.md Queue 1, "
-                "the other tracers")
-        if tracer != "search":
-            raise KeyError(tracer)
-        trace_fn = rayslib.trace_rays
+        trace_fn = _TRACERS[tracer]
         opts = self._route_ray_opts(tracer, trace_fn, opts)
 
         model = self._make_model(veln, velpn, vel_map, stif_den)

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into
-``alifmm_tpu_torch/_build/`` under a name keyed by a hash of the source and
-the flags, and loaded with ``ctypes``.  ``-fmad=false`` keeps every multiply
+``alifmm_tpu_torch/_build/`` under a name keyed by a hash of the source,
+every local header it includes (``#include "..."``, followed through the
+headers) and the flags, and loaded with ``ctypes``.  ``-fmad=false`` keeps every multiply
 and add apart, so that a kernel can follow its plain PyTorch twin operation
 for operation.
 """
@@ -13,10 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "CSRC", "compile_library"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "CSRC", "compile_library",
+           "source_files", "source_digest"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -37,13 +40,42 @@ def _nvcc():
                        "with the CUDA toolkit's nvcc")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_files(source: str) -> list:
+    """``source`` and every local header it includes, directly or through
+    another header (resolved beside the including file), each once, in
+    the order first met."""
+    files, todo = [], [os.path.abspath(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as fh:
+            todo += [os.path.join(os.path.dirname(path), inc.decode())
+                     for inc in _LOCAL_INCLUDE.findall(fh.read())]
+    return files
+
+
+def source_digest(source: str) -> str:
+    """Hash of ``source``, the headers it includes and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(source):
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + fh.read())
+    return digest.hexdigest()
+
+
 def compile_library(source: str, stem: str, verbose: bool = False):
     """Compile ``source`` (a path under ``csrc/``) unless this version of it
-    is built already, and load it.  Returns (library, compiler output);
-    ``verbose`` adds ``-Xptxas -v``, whose report is that output."""
-    with open(source, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+    and of its headers is built already, and load it.  Returns (library,
+    compiler output); ``verbose`` adds ``-Xptxas -v``, whose report is that
+    output."""
+    digest = source_digest(source)
+    so = os.path.join(BUILD_DIR, f"lib{stem}_{digest[:16]}.so")
     log = ""
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)

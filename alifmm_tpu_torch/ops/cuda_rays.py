@@ -1,20 +1,23 @@
-"""K2 and K3, the ray kernels on the GPU: the march, and the relaxation
-with the ray times.
+"""K2, K3 and K4, the ray kernels on the GPU: the plane-search march, the
+relaxation with the ray times, and the descent march.
 
-``csrc/rays.cu`` holds the two kernels (and ``segments``, which runs the
-segment integrators they share on a list of segments, for checking).  They
-replace loops that the JAX package leaves to XLA (``alifmm_tpu/rays.py``:
-the march's ``while_loop``, ``relax_rays``' wave scan, ``ray_times``).  The
-source is compiled with ``nvcc`` at first use and bound with ``ctypes``
+``csrc/rays.cu`` holds K2 and K3 (and ``segments``, which runs the segment
+integrators they share on a list of segments, for checking);
+``csrc/descent.cu`` holds K4, which shares their device functions through
+``csrc/ray_device.cuh``.  They replace loops that the JAX package leaves
+to XLA (``alifmm_tpu/rays.py``: the marches' ``while_loop``s,
+``relax_rays``' wave scan, ``ray_times``).  Each source is compiled with
+``nvcc`` at first use, apart from the other, and bound with ``ctypes``
 (``ops/_build.py``).
 
-``march`` and ``relax_and_times`` are the wrappers: for CUDA tensors each
-launches its kernel on the current stream and raises on any failure; for
-CPU tensors each runs its plain twin in ``rays.py``.  ``relax_wave`` and
-``ray_times`` are ``relax_and_times`` with one wave and no times, and with
-no waves.  ``LAUNCHES`` counts kernel launches by kernel name.
+``march``, ``march_descent`` and ``relax_and_times`` are the wrappers: for
+CUDA tensors each launches its kernel on the current stream and raises on
+any failure; for CPU tensors each runs its plain twin in ``rays.py``.
+``relax_wave`` and ``ray_times`` are ``relax_and_times`` with one wave and
+no times, and with no waves.  ``LAUNCHES`` counts kernel launches by
+kernel name.
 
-Both kernels copy the model's curve table into shared memory where it
+K2 and K3 copy the model's curve table into shared memory where it
 fits, and K3 a ray's polyline; ``shared=False`` on ``prepare_march`` and
 ``prepare_relax_and_times`` keeps both in device memory, so that a check
 can hold that path against the twins too.
@@ -24,7 +27,9 @@ columns read the unified curve table, 8 columns (``exact_materials``) the
 group table or the Christoffel solve per sample.  ``MarchSpec.grid``
 picks K2's nearest-point field tap over the bilinear one, and a march
 with ``MarchSpec.k_fast`` reads the uniform mask ``fast``.  Each choice
-is a separate instantiation of the kernel in ``csrc/rays.cu``.
+is a separate instantiation of the kernel in ``csrc/rays.cu``.  K4 reads
+the 4-column rows and the skew table from device memory; its scored
+window (``DescentSpec.score_k`` > 0) is the warp-a-ray instantiation.
 """
 
 from __future__ import annotations
@@ -39,15 +44,21 @@ from .. import grid as gridlib
 from .. import rays as rayslib
 from . import _build
 
-__all__ = ["LAUNCHES", "build", "march", "relax_and_times", "relax_wave",
-           "ray_times", "segments", "prepare_march", "prepare_relax_and_times",
-           "occupancy"]
+__all__ = ["LAUNCHES", "build", "build_descent", "march", "march_descent",
+           "relax_and_times", "relax_wave", "ray_times", "segments",
+           "prepare_march", "prepare_march_descent",
+           "prepare_relax_and_times", "occupancy"]
 
-LAUNCHES = {"march": 0, "relax_times": 0, "segments": 0}
+LAUNCHES = {"march": 0, "relax_times": 0, "segments": 0, "descent": 0}
 
 SOURCE = os.path.join(_build.CSRC, "rays.cu")
+DESCENT_SOURCE = os.path.join(_build.CSRC, "descent.cu")
 _LIB = None
+_DESCENT_LIB = None
 BUILD_LOG = ""
+DESCENT_BUILD_LOG = ""
+# the descent's scored window: odd, a lane a candidate (kMaxWindow)
+MAX_WINDOW = 31
 # the integrators' codes in csrc/rays.cu
 SIMPSON3, SIMPSON5, WALK, EXACT = 0, 1, 2, 3
 # material paths and field taps (MatKind, TapKind in csrc/rays.cu)
@@ -73,6 +84,9 @@ _ARGTYPES = {
 }
 _SIZES = {"alifmm_march_smem": [_I32] * 6,
           "alifmm_relax_times_smem": [_I32] * 5}
+_DESCENT_ARGTYPES = ([_PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _PTR, _PTR,
+                      _I64, _I32, _I32] + [_PTR] * 8 + [_I32] * 6
+                     + [_F64] * 8 + [_PTR])
 
 
 def build(verbose: bool = False):
@@ -96,12 +110,29 @@ def build(verbose: bool = False):
     return lib
 
 
-def _fn(stem, dtype):
+def build_descent(verbose: bool = False):
+    """Compile ``csrc/descent.cu`` (once per process and version of it and
+    its header) and return the loaded library; ``verbose`` as ``build``,
+    its report in ``DESCENT_BUILD_LOG``."""
+    global _DESCENT_LIB, DESCENT_BUILD_LOG
+    if _DESCENT_LIB is not None:
+        return _DESCENT_LIB
+    lib, DESCENT_BUILD_LOG = _build.compile_library(
+        DESCENT_SOURCE, "alifmm_descent", verbose)
+    for suffix in ("_f32", "_f64"):
+        fn = getattr(lib, "alifmm_descent" + suffix)
+        fn.argtypes = _DESCENT_ARGTYPES
+        fn.restype = _I32
+    _DESCENT_LIB = lib
+    return lib
+
+
+def _fn(stem, dtype, lib=build):
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the ray kernels take float32 or float64, not "
                         f"{dtype}")
     suffix = "_f32" if dtype == torch.float32 else "_f64"
-    return getattr(build(), stem + suffix)
+    return getattr(lib(), stem + suffix)
 
 
 def _check(name, t, dtype, device, shape=None):
@@ -267,6 +298,73 @@ def march(model: gridlib.Model, mat_flat, rec_ttf, ttf_index, source_xy,
                                    source_xy, receiver_xy, spec, fast)
     p = prepare_march(model, mat_flat, rec_ttf, ttf_index, source_xy,
                       receiver_xy, spec, fast)
+    if source_xy.shape[0]:
+        _launch(p)
+    return p.out
+
+
+def prepare_march_descent(model: gridlib.Model, mat_flat, rec_ttf,
+                          ttf_index, source_xy, receiver_xy,
+                          spec) -> Prepared:
+    """K4's launch on CUDA tensors (see ``march_descent``)."""
+    dt, dev = model.dtype, model.device
+    R = source_xy.shape[0]
+    if rec_ttf.dim() not in (2, 3):
+        raise ValueError(f"fields of shape {tuple(rec_ttf.shape)}")
+    rec_ttf = _check("rec_ttf", rec_ttf, dt, dev)
+    TZ, TX = rec_ttf.shape[-2:]
+    if TZ < 2 or TX < 2:
+        raise ValueError("fields need at least 2 x 2 points")
+    ttf_index = _check("ttf_index", ttf_index, torch.int64, dev, (R,))
+    src = _check("source_xy", source_xy.to(dt), dt, dev, (R, 2))
+    rec = _check("receiver_xy", receiver_xy.to(dt), dt, dev, (R, 2))
+    K = spec.score_k
+    if K < 0 or K > MAX_WINDOW or (K > 0 and K % 2 == 0):
+        raise ValueError(f"score_k {K}: odd and at most {MAX_WINDOW}, or 0")
+    if spec.max_steps < 0:
+        raise ValueError(f"descent with max_steps={spec.max_steps}")
+    mat, held = _mat_args(model, mat_flat, spec.s)
+    if mat[7] != MAT_CURVES:
+        raise ValueError("the descent reads the unified curve rows "
+                         "(4 columns)")
+    skew = _check("ray_skew", model.ray_skew, dt, dev,
+                  tuple(model.ray_curves.shape))
+    Z, X = model.shape
+    s = spec.s
+    rows, cols = (TZ, TX) if spec.grid else ((Z - 1) * s + 1, (X - 1) * s + 1)
+    P = spec.max_steps + 2
+    bx = torch.zeros((R, P), dtype=dt, device=dev)
+    by = torch.zeros((R, P), dtype=dt, device=dev)
+    length = torch.empty(R, dtype=torch.int64, device=dev)
+    reason = torch.empty(R, dtype=torch.int64, device=dev)
+    steps = torch.empty(R, dtype=torch.int64, device=dev)
+    args = mat[:7] + [
+        skew.data_ptr(), rec_ttf.data_ptr(),
+        TZ * TX if rec_ttf.dim() == 3 else 0, TZ, TX, ttf_index.data_ptr(),
+        src.data_ptr(), rec.data_ptr(), bx.data_ptr(), by.data_ptr(),
+        length.data_ptr(), reason.data_ptr(), steps.data_ptr(), R, P,
+        spec.max_steps, K, rows, cols, 1.0 if spec.grid else float(s),
+        float(s), spec.step_scale * s, ((spec.step_scale + 3.0) * s) ** 2,
+        (4.0 * s) ** 2, (1.6 * s) ** 2, (K - 1) / 2.0,
+        spec.score_stride * s]
+    return Prepared("descent", _fn("alifmm_descent", dt, build_descent),
+                    args, (bx, by, length, reason, steps),
+                    held + (skew, rec_ttf, ttf_index, src, rec), dev,
+                    dict(lanes=32 if K else 1))
+
+
+def march_descent(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
+                  source_xy, receiver_xy, spec):
+    """March every ray by characteristic descent from source to end
+    (``rays.descent_plain`` states the result): K4 in one launch on CUDA
+    tensors, the plain twin on CPU tensors.  ``spec``: a
+    ``rays.DescentSpec``.  ``ttf_index`` must lie within the field stack:
+    ``trace_rays_descent`` checks that, the kernel does not."""
+    if not rec_ttf.is_cuda:
+        return rayslib.descent_plain(model, mat_flat, rec_ttf, ttf_index,
+                                     source_xy, receiver_xy, spec)
+    p = prepare_march_descent(model, mat_flat, rec_ttf, ttf_index,
+                              source_xy, receiver_xy, spec)
     if source_xy.shape[0]:
         _launch(p)
     return p.out

@@ -1,26 +1,32 @@
 """Batched Fermat ray tracing through receiver travel-time fields.
 
-Counterpart of ``alifmm_tpu/rays.py`` (the plane-search tracer): the march
-of ``trace_rays`` with Simpson or crossing-walk candidate scoring, even/odd-
-wave Fermat relaxation (``relax_rays``) and exact sorted-crossing time
-integration (``ray_times``/``segment_time``).  Fields are sampled bilinearly
+Counterpart of ``alifmm_tpu/rays.py``: the plane-search march of
+``trace_rays`` with Simpson or crossing-walk candidate scoring, the
+characteristic descent of ``trace_rays_descent`` (a step along the group
+direction from the field's gradient and the model's skew table, with an
+optional scored window), ``trace_rays_auto`` (the descent, certified
+against the field's first arrival, with the plane search as fallback),
+even/odd-wave Fermat relaxation (``relax_rays``), exact sorted-crossing
+time integration (``ray_times``/``segment_time``) and
+``split_at_cell_boundaries``.  Fields are sampled bilinearly
 on the model grid (``mode="interp"``) or at the nearest point of the
 refined grid (``mode="grid"``); materials come from the unified curve
 table or, with ``exact_materials`` (and for models without curve
 indices), from the per-sample Christoffel solve; ``fast_step_scale``
 takes long strides where ``_uniform_mask`` finds the medium uniform.
 
-On CUDA tensors the march and the relaxation with the ray times run as
-hand-written kernels (``ops/cuda_rays.py``, ``csrc/rays.cu``): one launch
-marches every ray to its end with no host read per step, one more relaxes
-every ray and adds up its time.  This module holds their plain PyTorch
-twins -- ``march_plain`` (a Python loop over steps, vectorised over rays
-and candidates, one host read per step), ``relax_and_times_plain`` (the
+On CUDA tensors the marches and the relaxation with the ray times run as
+hand-written kernels (``ops/cuda_rays.py``, ``csrc/rays.cu`` and
+``csrc/descent.cu``): one launch marches every ray to its end with no host
+read per step, one more relaxes every ray and adds up its time.  This
+module holds their plain PyTorch twins -- ``march_plain`` and
+``descent_plain`` (Python loops over steps, vectorised over rays and
+candidates, one host read per step), ``relax_and_times_plain`` (the
 waves of ``relax_wave_plain``, then ``ray_times_plain``) and the segment
 integrators -- which the wrappers take for CPU tensors and which the
 kernels are held against on the card.  ``mod180`` states the kernels'
 floor-mod by 180, which gives ``torch.remainder``'s bits.
-``PLAIN_STEPS`` counts plain march steps.
+``PLAIN_STEPS`` counts plain march steps of both marches.
 
 The twins give the same bits on the CPU and on the card: divisors are
 tensors (PyTorch's CUDA division by a Python number multiplies by its
@@ -37,6 +43,7 @@ from __future__ import annotations
 import math
 import typing
 
+import numpy as np
 import torch
 
 from . import grid as gridlib
@@ -44,8 +51,10 @@ from . import materials as mats
 from .ops import cuda_rays
 
 __all__ = ["segment_time", "segment_time_quad", "segment_time_quad3",
-           "ray_times", "relax_rays", "trace_rays", "MarchSpec",
-           "march_spec", "march_plain", "relax_wave_plain", "ray_times_plain",
+           "ray_times", "relax_rays", "trace_rays", "trace_rays_descent",
+           "trace_rays_auto", "split_at_cell_boundaries", "MarchSpec",
+           "march_spec", "march_plain", "DescentSpec", "descent_spec",
+           "descent_plain", "relax_wave_plain", "ray_times_plain",
            "relax_and_times_plain", "mod180", "PLAIN_STEPS"]
 
 _BIG = 1.0e30
@@ -718,6 +727,24 @@ def march_spec(model: gridlib.Model, subgrid_size: int,
                      mode == "grid")
 
 
+def _ray_inputs(model, rec_ttf, ttf_index, source_xy, receiver_xy):
+    """A tracer's inputs on the model's device, the field indices as int64
+    and checked against the stack where they lie: for indices on the host
+    (the facade's) this costs no wait; for indices on the card it is the
+    ray phase's one host read, ahead of the march (the kernels do not
+    check)."""
+    dev = model.device
+    rec_ttf = torch.as_tensor(rec_ttf).to(dev)
+    ttf_index = torch.as_tensor(ttf_index)
+    n_fields = rec_ttf.shape[0] if rec_ttf.dim() == 3 else 1
+    if ttf_index.numel() and (int(ttf_index.min()) < 0
+                              or int(ttf_index.max()) >= n_fields):
+        raise ValueError("ttf_index out of range of the field stack")
+    return (rec_ttf, ttf_index.to(dev).to(torch.int64),
+            torch.as_tensor(source_xy).to(dev),
+            torch.as_tensor(receiver_xy).to(dev))
+
+
 def trace_rays(
     model: gridlib.Model,
     rec_ttf,
@@ -751,25 +778,14 @@ def trace_rays(
     there the march is one kernel launch and the relaxation waves with the
     ray times another (``ops/cuda_rays.py``)."""
     mat_flat = _material_flat(model, exact_materials)
-    dev = model.device
     spec = march_spec(model, subgrid_size, max_steps, max_cross, step_scale,
                       quad_vel, cand_stride, plane_dist, near_step,
                       fast_step_scale, mode)
     # the JAX radius: k_fast + 4 model cells, whatever plane_dist is
     fast = (_uniform_mask(model, spec.k_fast + 4).reshape(-1)
             if spec.k_fast > 0 else None)
-    rec_ttf = torch.as_tensor(rec_ttf).to(dev)
-    ttf_index = torch.as_tensor(ttf_index)
-    n_fields = rec_ttf.shape[0] if rec_ttf.dim() == 3 else 1
-    # checked where the indices lie: for indices on the host (the facade's)
-    # this costs no wait; for indices on the card it is the ray phase's one
-    # host read, ahead of the march (the kernel does not check)
-    if ttf_index.numel() and (int(ttf_index.min()) < 0
-                              or int(ttf_index.max()) >= n_fields):
-        raise ValueError("ttf_index out of range of the field stack")
-    ttf_index = ttf_index.to(dev).to(torch.int64)
-    source_xy = torch.as_tensor(source_xy).to(dev)
-    receiver_xy = torch.as_tensor(receiver_xy).to(dev)
+    rec_ttf, ttf_index, source_xy, receiver_xy = _ray_inputs(
+        model, rec_ttf, ttf_index, source_xy, receiver_xy)
 
     bx, by, length, reason, _ = cuda_rays.march(
         model, mat_flat, rec_ttf, ttf_index, source_xy, receiver_xy, spec,
@@ -783,3 +799,405 @@ def trace_rays(
     if return_reason:
         return bx, by, length, times, reason
     return bx, by, length, times
+
+
+def _sample_ttf(ttf, x, y, subgrid_size, mode, index=None):
+    """The receiver field sampled at fine coordinates (x, y): in ``"grid"``
+    mode the nearest point of the refined grid (round half to even), in
+    ``"interp"`` mode bilinear on the model grid at (x, y) / s.  ``ttf``
+    is one (Z, X) field, or a (T, Z, X) stack with ``index`` picking each
+    point's field (read in place: the stack is not gathered)."""
+    Z, X = ttf.shape[-2:]
+    flat = ttf.reshape(-1)
+    off = 0 if index is None else index * (Z * X)
+    if mode == "grid":
+        xi = torch.clamp(torch.round(x).to(torch.int64), 0, X - 1)
+        yi = torch.clamp(torch.round(y).to(torch.int64), 0, Z - 1)
+        return flat[off + yi * X + xi]
+    v00, v01, v10, v11, fx, fy = _corners(flat, off, Z, X, x, y,
+                                          _scalar_like(x, subgrid_size))
+    return _bilinear(v00, v01, v10, v11, fx, fy)
+
+
+def _sample_ttf_grad(ttf, x, y, subgrid_size, mode, index=None):
+    """(T, dT/dx, dT/dy) at fine coordinates from the in-cell bilinear
+    surface: on the model grid at (x, y) / s, or (``"grid"``) on the
+    refined grid itself.  Derivatives are per fine cell.  ``ttf`` and
+    ``index`` as in ``_sample_ttf``."""
+    Z, X = ttf.shape[-2:]
+    off = 0 if index is None else index * (Z * X)
+    s = _scalar_like(x, 1.0 if mode == "grid" else subgrid_size)
+    v00, v01, v10, v11, fx, fy = _corners(ttf.reshape(-1), off, Z, X, x, y,
+                                          s)
+    gx = ((1 - fy) * (v01 - v00) + fy * (v11 - v10)) / s
+    gy = ((1 - fx) * (v10 - v00) + fx * (v11 - v01)) / s
+    return _bilinear(v00, v01, v10, v11, fx, fy), gx, gy
+
+
+def _scalar_like(t, v):
+    return torch.full((), float(v), dtype=t.dtype, device=t.device)
+
+
+def _corners(flat, off, Z, X, x, y, s):
+    """The four field values around (x, y) / s in a flat (Z, X) field
+    stack at element offset ``off``, and the fractions within the cell;
+    ``s`` is a 0-d tensor."""
+    cx = torch.clamp(x / s, 0.0, X - 1.0)
+    cy = torch.clamp(y / s, 0.0, Z - 1.0)
+    x0 = torch.clamp(torch.floor(cx).to(torch.int64), 0, X - 2)
+    y0 = torch.clamp(torch.floor(cy).to(torch.int64), 0, Z - 2)
+    fx = cx - x0.to(cx.dtype)
+    fy = cy - y0.to(cy.dtype)
+    base = off + y0 * X + x0
+    return (flat[base], flat[base + 1], flat[base + X], flat[base + X + 1],
+            fx, fy)
+
+
+def _bilinear(v00, v01, v10, v11, fx, fy):
+    return (v00 * (1 - fy) * (1 - fx) + v01 * (1 - fy) * fx
+            + v10 * fy * (1 - fx) + v11 * fy * fx)
+
+
+class DescentSpec(typing.NamedTuple):
+    """Static shape of a descent march: fine cells per model cell ``s``,
+    model cells per step far from the receiver ``step_scale``, the step
+    budget, the scored window (``score_k`` candidates ``score_stride``
+    model cells apart; 0: none) and ``grid``: the fields lie on the
+    refined grid (the gradient is bilinear on it either way)."""
+
+    s: int
+    step_scale: float
+    max_steps: int
+    score_k: int
+    score_stride: float
+    grid: bool
+
+
+def descent_spec(model: gridlib.Model, subgrid_size: int,
+                 max_steps: int | None, step_scale: float, score_k: int,
+                 score_stride: float, mode: str = "interp") -> DescentSpec:
+    """The descent march's static shape from ``trace_rays_descent``'s
+    knobs.  An even ``score_k`` raises: the improve-gate scores the
+    window's centre candidate, which an even window lacks."""
+    if score_k > 0 and score_k % 2 == 0:
+        raise ValueError(f"score_k must be odd (got {score_k})")
+    if mode not in ("grid", "interp"):
+        raise ValueError(f"trace_rays_descent mode {mode!r}: 'grid' or "
+                         f"'interp'")
+    if model.ray_curve_idx is None or model.ray_skew is None:
+        raise ValueError("the descent needs a model with ray curves and "
+                         "skew tables (grid.make_model builds them)")
+    Z, X = model.shape
+    if max_steps is None:
+        max_steps = int(-(-5 * (Z + X) // max(1.0, float(step_scale))))
+    return DescentSpec(int(subgrid_size), float(step_scale), int(max_steps),
+                       int(score_k), float(score_stride), mode == "grid")
+
+
+def descent_plain(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
+                  source_xy, receiver_xy, spec: DescentSpec):
+    """Plain twin of the descent kernel (K4).  Each step moves a ray
+    against its group direction: the unit bilinear gradient of its field
+    (the phase direction) turned by the skew of the model cell it is in
+    (``model.ray_skew`` at the effective angle); ``step_scale`` model
+    cells a step, one inside (step_scale + 3) of the receiver, straight at
+    it inside 4, onto it when it is within the step.  With ``score_k``
+    the point then moves across the step to the parabolic minimum of
+    field + Simpson segment time over the window, where that beats the
+    centre by more than 1e-3 of its segment time.  A ray ends when its
+    gradient vanishes (reason 1), when it is within 1.6 model cells of
+    the receiver, or after ``max_steps``.  Returns (bx, by, length,
+    reason, steps) as ``march_plain`` does, the receiver appended."""
+    global PLAIN_STEPS
+    Z, X = model.shape
+    s = spec.s
+    dt, dev = model.dtype, model.device
+    R = source_xy.shape[0]
+    TZ, TX = rec_ttf.shape[-2:]
+    if spec.grid:
+        rows, cols = TZ, TX
+    else:
+        rows, cols = (Z - 1) * s + 1, (X - 1) * s + 1
+    P = spec.max_steps + 2
+    s_t = _scalar(model, s)
+    s_grid = _scalar(model, 1.0 if spec.grid else s)
+    one = _scalar(model, 1.0)
+    h_far = spec.step_scale * s
+    near_far2 = ((spec.step_scale + 3.0) * s) ** 2
+    K = spec.score_k
+    half = (K - 1) / 2.0
+    lat_step = spec.score_stride * s
+
+    src_x = source_xy[:, 0].to(dt)
+    src_y = source_xy[:, 1].to(dt)
+    rec_x = receiver_xy[:, 0].to(dt)
+    rec_y = receiver_xy[:, 1].to(dt)
+    flat_all = rec_ttf.reshape(-1)
+    t_off = (ttf_index * (TZ * TX) if rec_ttf.dim() == 3
+             else torch.zeros_like(ttf_index))
+    mode = "grid" if spec.grid else "interp"
+    field = ttf_index if rec_ttf.dim() == 3 else None
+    veln_flat = model.veln.reshape(-1)
+    cls_flat = model.ray_curve_idx.reshape(-1)
+    ridx = torch.arange(R, device=dev)
+    if K:
+        lat = (torch.arange(K, dtype=dt, device=dev) - half) * lat_step
+
+    def step(state):
+        last_x, last_y, bx, by, length, done, reason, steps = state
+        steps = steps + (~done).to(torch.int64)
+        _, gx, gy = _sample_ttf_grad(rec_ttf, last_x, last_y, s, mode,
+                                     field)
+        gnorm = torch.sqrt(gx * gx + gy * gy)
+        stalled = gnorm <= 0.0
+        gsafe = torch.where(stalled, 1.0, gnorm)
+        nx, ny = gx / gsafe, gy / gsafe
+
+        # the skew of the current cell turns the phase direction into the
+        # group direction; the ray marches against it
+        xi = torch.clamp(torch.round(last_x / s_t).to(torch.int64), 0, X - 1)
+        yi = torch.clamp(torch.round(last_y / s_t).to(torch.int64), 0, Z - 1)
+        cell = yi * X + xi
+        phi = veln_flat[cell] - torch.atan2(gy, gx) * _RAD2DEG
+        d_mat = mats.interp_table_gather(model.ray_skew, phi, cls_flat[cell],
+                                         one)
+        dg = -d_mat * (math.pi / 180.0)
+        cd, sd = torch.cos(dg), torch.sin(dg)
+        dir_x = -(cd * nx - sd * ny)
+        dir_y = -(cd * ny + sd * nx)
+
+        dx_r = rec_x - last_x
+        dy_r = rec_y - last_y
+        near2 = dx_r * dx_r + dy_r * dy_r
+        near = torch.sqrt(near2)
+        off = torch.where(near2 < near_far2, _full(near2, float(s)),
+                          _full(near2, h_far))
+        snap = near2 < (4.0 * s) ** 2
+        nsafe = torch.where(near == 0, 1.0, near)
+        dir_x = torch.where(snap, dx_r / nsafe, dir_x)
+        dir_y = torch.where(snap, dy_r / nsafe, dir_y)
+        hit = snap & (near <= off)
+
+        new_x = torch.clamp(last_x + off * dir_x, 0.0, cols - 1.0)
+        new_y = torch.clamp(last_y + off * dir_y, 0.0, rows - 1.0)
+        if K:
+            # the scored window across the step, centred on the point
+            px, py = -dir_y, dir_x
+            cx = torch.clamp(new_x[:, None] + lat[None, :] * px[:, None], 0.0,
+                             cols - 1.0)
+            cy = torch.clamp(new_y[:, None] + lat[None, :] * py[:, None], 0.0,
+                             rows - 1.0)
+            t_c = _bilinear(*_corners(flat_all, t_off[:, None], TZ, TX, cx,
+                                      cy, s_grid))
+            seg = segment_time_quad(model, mat_flat, last_x[:, None],
+                                    last_y[:, None], cx, cy, s)
+            score = t_c + seg
+            kb = _argmin_first(score)
+            s0 = score[ridx, kb]
+            sm = score[ridx, torch.clamp_min(kb - 1, 0)]
+            sp = score[ridx, torch.clamp_max(kb + 1, K - 1)]
+            den = sm - 2.0 * s0 + sp
+            delta = torch.where(
+                den > 0.0,
+                0.5 * (sm - sp) / torch.where(den == 0.0, 1.0, den), 0.0)
+            woff = (kb.to(dt) - half + torch.clamp(delta, -1.0, 1.0)) * lat_step
+            # correct only where the window's minimum beats the centre by
+            # more than the flat valley's noise; the snap stays straight
+            improve = (score[:, K // 2] - s0) > 1e-3 * seg[:, K // 2]
+            woff = torch.where(improve & ~snap, woff, 0.0)
+            new_x = torch.clamp(new_x + woff * px, 0.0, cols - 1.0)
+            new_y = torch.clamp(new_y + woff * py, 0.0, rows - 1.0)
+        new_x = torch.where(hit, rec_x, new_x)
+        new_y = torch.where(hit, rec_y, new_y)
+
+        reason = torch.where(done, reason, torch.where(stalled, 1, reason))
+        add = ~(done | stalled)
+        bx[ridx, length] = torch.where(add, new_x, bx[ridx, length])
+        by[ridx, length] = torch.where(add, new_y, by[ridx, length])
+        last_x = torch.where(add, new_x, last_x)
+        last_y = torch.where(add, new_y, last_y)
+        length = torch.where(add, length + 1, length)
+        arrived = ((last_x - rec_x) ** 2 + (last_y - rec_y) ** 2
+                   <= (1.6 * s) ** 2)
+        done = done | stalled | arrived
+        return last_x, last_y, bx, by, length, done, reason, steps
+
+    bx = torch.zeros((R, P), dtype=dt, device=dev)
+    by = torch.zeros((R, P), dtype=dt, device=dev)
+    bx[:, 0] = src_x
+    by[:, 0] = src_y
+    arrived0 = (src_x - rec_x) ** 2 + (src_y - rec_y) ** 2 <= (1.6 * s) ** 2
+    zeros = torch.zeros(R, dtype=torch.int64, device=dev)
+    state = (src_x, src_y, bx, by, torch.ones(R, dtype=torch.int64,
+                                              device=dev),
+             arrived0, zeros, zeros)
+    k = 0
+    while k < spec.max_steps and not bool(state[5].all()):
+        state = step(state)
+        PLAIN_STEPS += 1
+        k += 1
+    _, _, bx, by, length, _, reason, steps = state
+    bx[ridx, length] = rec_x
+    by[ridx, length] = rec_y
+    return bx, by, length + 1, reason, steps
+
+
+def trace_rays_descent(
+    model: gridlib.Model,
+    rec_ttf,
+    ttf_index,
+    source_xy,
+    receiver_xy,
+    subgrid_size: int,
+    mode: str = "interp",
+    max_steps: int | None = None,
+    max_cross: int = 16,
+    step_scale: float = 6.0,
+    relax_iters: int = 2,
+    relax_quad: bool | int = True,
+    return_reason: bool = False,
+    score_k: int = 0,
+    score_stride: float = 1.0,
+):
+    """Characteristic-descent ray marching: each step follows the group
+    direction that the receiver field's gradient and the model's skew
+    table give (``descent_plain`` states the step), with an optional
+    scored window of ``score_k`` (odd) candidates across it.  Then
+    ``relax_iters`` odd-even pairs of Fermat relaxation waves and the
+    exact ray times, with ``max(max_cross, int(2 * step_scale) + 6)``
+    crossings a segment.  Same arguments and returns as ``trace_rays``;
+    the model needs its ray curves and skew tables.  On the card the march
+    is one launch of K4 (``ops/cuda_rays.march_descent``) and the
+    relaxation with the times one of K3."""
+    spec = descent_spec(model, subgrid_size, max_steps, step_scale, score_k,
+                        score_stride, mode)
+    mat_flat = _material_flat(model)
+    rec_ttf, ttf_index, source_xy, receiver_xy = _ray_inputs(
+        model, rec_ttf, ttf_index, source_xy, receiver_xy)
+    bx, by, length, reason, _ = cuda_rays.march_descent(
+        model, mat_flat, rec_ttf, ttf_index, source_xy, receiver_xy, spec)
+    relax_cross = max(max_cross, int(2 * step_scale) + 6)
+    bx, by, times = cuda_rays.relax_and_times(
+        model, mat_flat, bx, by, length, spec.s, 2 * max(relax_iters, 0),
+        relax_cross=relax_cross, quad=relax_quad, times_cross=relax_cross)
+    if return_reason:
+        return bx, by, length, times, reason
+    return bx, by, length, times
+
+
+def trace_rays_auto(
+    model: gridlib.Model,
+    rec_ttf,
+    ttf_index,
+    source_xy,
+    receiver_xy,
+    subgrid_size: int,
+    mode: str = "interp",
+    tol: float = 3e-3,
+    retrace_chunk: int = 128,
+    descent_kw: dict | None = None,
+    search_kw: dict | None = None,
+):
+    """The descent tracer with a certified fallback, driven from the host.
+    Every ray is marched by ``trace_rays_descent`` (``descent_kw``); its
+    field sampled at its source is the first-arrival time, which no path
+    beats, so a ray whose time is not within ``(1 + tol)`` of it (NaN
+    included) is retraced by the plane search ``trace_rays``
+    (``search_kw``) in chunks of ``retrace_chunk`` rays, the flagged list
+    repeated to fill the last chunk.  A retraced ray replaces the descent
+    ray when its time is lower or the descent time is NaN.  Returns
+    (ray_x, ray_y, lengths, times), padded to the wider step buffer, on
+    the model's device.  The certificate is one host read; each retrace
+    chunk is one launch of K2 and one of K3."""
+    descent_kw = dict(descent_kw or {})
+    search_kw = dict(search_kw or {})
+    s = int(subgrid_size)
+    dev = model.device
+    rec_ttf, ttf_index, source_xy, receiver_xy = _ray_inputs(
+        model, rec_ttf, ttf_index, source_xy, receiver_xy)
+    bx, by, lens, times = trace_rays_descent(
+        model, rec_ttf, ttf_index, source_xy, receiver_xy, s, mode=mode,
+        **descent_kw)
+    src = source_xy.to(model.dtype)
+    t_true = _sample_ttf(rec_ttf, src[:, 0], src[:, 1], s, mode,
+                         ttf_index if rec_ttf.dim() == 3 else None)
+    bad = (~(times <= (1.0 + tol) * t_true)).cpu().numpy()
+    if not bad.any():
+        return bx, by, lens, times
+
+    bx, by, lens, times = (a.cpu().numpy().copy()
+                           for a in (bx, by, lens, times))
+    tidx_host = ttf_index.cpu()
+    idx = np.nonzero(bad)[0]
+    n_chunks = -(-len(idx) // retrace_chunk)
+    padded = np.resize(idx, n_chunks * retrace_chunk)
+    for c in range(n_chunks):
+        sub = padded[c * retrace_chunk:(c + 1) * retrace_chunk]
+        sub_t = torch.from_numpy(sub)
+        rbx, rby, rlens, rtimes = (a.cpu().numpy() for a in trace_rays(
+            model, rec_ttf, tidx_host[sub_t], source_xy[sub_t.to(dev)],
+            receiver_xy[sub_t.to(dev)], s, mode=mode, **search_kw))
+        W = bx.shape[1]
+        if rbx.shape[1] > W:
+            bx = np.pad(bx, ((0, 0), (0, rbx.shape[1] - W)))
+            by = np.pad(by, ((0, 0), (0, rbx.shape[1] - W)))
+        uniq = sub if c + 1 < n_chunks else np.unique(sub)
+        pos = {int(r): k for k, r in enumerate(sub)}
+        for r in uniq:
+            k = pos[int(r)]
+            # both times are integrated exactly, so the lower one is the
+            # better Fermat path; a NaN descent time always loses
+            if not (rtimes[k] < times[r] or np.isnan(times[r])):
+                continue
+            bx[r, :rbx.shape[1]] = rbx[k]
+            by[r, :rby.shape[1]] = rby[k]
+            lens[r] = rlens[k]
+            times[r] = rtimes[k]
+    return tuple(torch.from_numpy(a).to(dev) for a in (bx, by, lens, times))
+
+
+def split_at_cell_boundaries(ray_x, ray_y, max_cross_per_seg: int = 16):
+    """Split a ray polyline at every grid-cell boundary it crosses (the
+    reference's travel_times utility), as fixed-width arrays.  ``ray_x``,
+    ``ray_y``: (P,) vertices in model-grid units.  Returns (xs, ys, valid):
+    (P - 1, max_cross_per_seg) points per segment and their mask; the
+    valid points in order, after the first vertex, are the reference's
+    output."""
+    ray_x = torch.as_tensor(ray_x)
+    ray_y = torch.as_tensor(ray_y)
+    dt = torch.promote_types(ray_x.dtype, torch.float32)
+    x1, x2 = ray_x[:-1], ray_x[1:]
+    y1, y2 = ray_y[:-1], ray_y[1:]
+    dx_zero = x2 == x1
+    m = torch.where(dx_zero, 0.0,
+                    (y2 - y1) / torch.where(dx_zero, 1.0, x2 - x1))
+    c = y1 - m * x1
+    dir_x = torch.where(x1 < x2, 1.0, -1.0).to(x1.dtype)
+    dir_y = torch.where(y1 < y2, 1.0, -1.0).to(x1.dtype)
+    m_safe = torch.where(m == 0, 1.0, m)
+    next_x = torch.round(x1) + dir_x * 0.5
+    next_y = torch.round(y1) + dir_y * 0.5
+    fin_x = torch.zeros_like(dx_zero)
+    fin_y = torch.zeros_like(dx_zero)
+    xs, ys, valid = [], [], []
+    for _ in range(max_cross_per_seg):
+        done = fin_x & fin_y
+        past_x = ((next_x > x2) & (dir_x == 1)) | ((next_x < x2) & (dir_x == -1))
+        next_x = torch.where(past_x & ~fin_x, x2, next_x)
+        fin_x = fin_x | past_x
+        past_y = ((next_y > y2) & (dir_y == 1)) | ((next_y < y2) & (dir_y == -1))
+        next_y = torch.where(past_y & ~fin_y, y2, next_y)
+        fin_y = fin_y | past_y
+        nxy = m * next_x + c
+        nyx = (next_y - c) / m_safe
+        dxc = (x1 - next_x) ** 2 + (y1 - nxy) ** 2
+        dyc = (x1 - nyx) ** 2 + (y1 - next_y) ** 2
+        take_x = ~dx_zero & ((m == 0) | (dxc < dyc))
+        xs.append(torch.where(dx_zero, x1, torch.where(take_x, next_x, nyx)))
+        ys.append(torch.where(dx_zero, next_y,
+                              torch.where(take_x, nxy, next_y)))
+        valid.append(~done)
+        next_x = torch.where(take_x, next_x + dir_x, next_x)
+        next_y = torch.where(~take_x, next_y + dir_y, next_y)
+    return (torch.stack(xs, 1).to(dt), torch.stack(ys, 1).to(dt),
+            torch.stack(valid, 1))

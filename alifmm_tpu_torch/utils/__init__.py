@@ -1,1 +1,2 @@
-"""Host-side helpers of the facade: model sanity checks and progress bars."""
+"""Host-side helpers: model sanity checks, progress bars, saving and
+loading fields and rays, timing and device traces."""

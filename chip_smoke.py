@@ -9,9 +9,9 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
 1. device check: a CUDA device must be present; prints nvidia-smi's name
    and power limit;
 2. builds the kernels from ``alifmm_tpu_torch/csrc`` with nvcc, one
-   compiler per source, both at once: the sweep kernel K1 (``sweep.cu``)
-   and the ray kernels K2 and K3 (``rays.cu``); prints ptxas' registers
-   and spills per kernel;
+   compiler per source, all at once: the sweep kernel K1 (``sweep.cu``),
+   the ray kernels K2 and K3 (``rays.cu``) and the descent march K4
+   (``descent.cu``); prints ptxas' registers and spills per kernel;
 3. holds K1 against its plain PyTorch twin on the card, in float64 and
    float32: a min pass and a replace pass on each case of ``PASS_CASES``
    (48 x 56, per-source weld patches of 109 x 109 and 79 x 79, narrow
@@ -36,6 +36,12 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    refined grid (s = 3), with exact materials, with both, and with
    ``fast_step_scale`` on a model uniform away from a slow band, each
    followed by K3 on the marched polylines where the rows are exact;
+4c. K4 against its plain twin ``descent_plain`` on 48 x 56, float64 and
+   float32, with the facade's descent defaults and with score_k 5, on
+   fields of the model grid and of the refined grid (``DESCENT_CASES``),
+   as a bare launch and through the wrapper ``cuda_rays.march_descent``;
+   then ``trace_rays_descent`` (one K4 and one K3 launch) against K3's
+   twin on K4's polylines (``check_descent``);
 5. analytic check at full size: homogeneous isotropic 424 x 500, one
    interior source, relative error against r / v;
 5b. K1 against its plain twin at the fine path's patch shapes (four
@@ -58,10 +64,28 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    of the steps the rays took (``plain_march``); the march's step split
    by part (clock64, a float32 build that only this phase launches) and
    the blocks resident per SM;
+7b. K4 at the weld shape (961 rays through the fields of phase 6), the
+   facade's descent defaults and score_k 5: against its twin in float64
+   and float32 as in 4c, and timed warm in float32 beside its bound
+   (from the steps the twin took) and the twin's time;
+7c. the FMC slice (every pair of the 62 transducers: 61 fields of 424 x
+   500, 1891 rays, float32) with each tracer (search, descent, auto):
+   directly (``solve_ttf``, then the tracer with the knobs the facade
+   routes to it) and through ``ALI_FMM``, a warm-up run then a timed one
+   with every count set to 0 just before it; every ray arrives with a
+   finite positive time, no auto time is above its descent time, the
+   launch counts are the tracer's (auto: one K4, and one K2 and one K3
+   per retrace chunk), the facade's times equal the direct path's; the
+   descent and auto times against the search times; K4 timed on the FMC
+   fields;
+7d. one ``utils/profiling.trace`` each of a warm weld slice and a warm FMC
+   slice with the descent tracer: the device's busy share from the
+   Chrome trace;
 8. K1 timed warm (CUDA events) on each stage's input of the weld solve
    (31 x 109 x 109 twice, 31 x 79 x 79, 31 x 424 x 500; float32) beside
    its bound, at its own launch shape and at every other one; one plain
-   pass at the final shape, timed and compared;
+   pass at the final shape (the graphed twin, ``sweep.gs_pass(graphed=
+   True)``), timed and compared;
 9. the fine weld slice in float32 (s = 9: 31 fields of 3808 x 4492, 961
    rays): the direct path (``solve_ttf(subgrid_size=9)`` +
    ``trace_rays(mode="grid")``; a warm-up run, then a timed one with
@@ -74,7 +98,9 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
 10. K1 timed warm at the three stage shapes of the fine solve beside its
    bound; K2 with the nearest-point tap, and with exact materials too, on
    the fine fields against its twin (float32) and timed beside its bound
-   and the twin; K3 with exact materials likewise.
+   and the twin; K3 with exact materials likewise;
+10b. K4 in grid mode on the fine fields (score_k 0 and 5): against its
+   twin in float32 (timed) and float64.
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``.
@@ -85,6 +111,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1316,7 +1343,7 @@ def time_k1(tt, fixed, packed, cluster=None, lanes=None, n=10):
 def phase_pass_timing(inputs):
     """K1 warm at every stage shape of the weld solve (float32), beside its
     bound; launch shapes compared at each; one plain pass at the final
-    shape."""
+    shape, on the graphed twin."""
     from alifmm_tpu_torch.ops import cuda_sweep, sweep
 
     shapes = []
@@ -1339,13 +1366,15 @@ def phase_pass_timing(inputs):
         log(f"    launch shapes (ms per pass): {'; '.join(alt)}")
         shapes.append(dict(stage=name, sources=B, cluster=C, lanes=G, ms=ms,
                            bound_ms=bound, bound_by=by))
+    # the graphed twin, which phase 3 holds bit for bit to the eager one
+    # (the eager pass takes 45-96 s here, host-bound)
     t0 = time.perf_counter()
-    out_p = sweep.gs_pass(tt0, model, fixed, replace=False)
+    out_p = sweep.gs_pass(tt0, model, fixed, replace=False, graphed=True)
     torch.cuda.synchronize()
     ms_p = (time.perf_counter() - t0) * 1e3
     abs_e, rel_e = rel_err(out_k, out_p)
-    log(f"  {name} plain twin {ms_p:.1f} ms per pass; K1 against it: max "
-        f"abs {abs_e:.3e} max rel {rel_e:.3e}")
+    log(f"  {name} graphed plain twin {ms_p:.1f} ms per pass; K1 against "
+        f"it: max abs {abs_e:.3e} max rel {rel_e:.3e}")
     check(rel_e <= TOL_PASS[torch.float32], "final-shape pass differs")
     return shapes, ms_p, abs_e
 
@@ -1909,6 +1938,547 @@ def phase_fine_timing(inputs, fine):
     return shapes, out
 
 
+# --------------------------------------------------------------------- #
+# K4, the descent march; the FMC slice with every tracer; device profiles
+# --------------------------------------------------------------------- #
+
+# K4 against its twin on 48 x 56: (trace_rays_descent knobs, fine cells
+# per model cell, whether the fields lie on the refined grid).  The
+# facade's descent defaults: step_scale 6, max_cross 16, relax_iters 2,
+# relax_quad True, score_k 0.
+DESCENT_CASES = {
+    "interp, defaults": (dict(), 9, False),
+    "interp, score_k 5": (dict(score_k=5), 9, False),
+    "grid, defaults": (dict(mode="grid"), 3, True),
+    "grid, score_k 5": (dict(mode="grid", score_k=5), 3, True),
+}
+# the FMC example's budgets and march knobs (examples/fmc_rays_torch.py)
+FMC_SOLVE = dict(final_rel_tol=2e-3, final_polish_passes=3, sweep_block=4)
+FMC_RAY_OPTS = dict(max_cross=8, step_scale=6, quad_vel=True, relax_iters=1,
+                    relax_quad=3, max_steps=170, cand_stride=6.0)
+TRACERS = ("search", "descent", "auto")
+# Operations for K4's bound, counted from rays.descent_plain: a step's
+# gradient (four loads, 20 operations, a square root and two divides at
+# 10 each), its cell (two divides, two roundings, clamps: 30), atan2 20,
+# the skew gather 20, cos and sin 40, the stride and the snap (a square
+# root, two divides, clamps: 40), about 220; a window candidate's offset
+# and clamps 10, its bilinear field sample, its Simpson segment and 5
+# material samples (the K2 counts above), about 370; the window's
+# minimum search and parabola about 40 a step.
+OPS_DESCENT_STEP, OPS_WINDOW_STEP = 220, 40
+OPS_WINDOW_CANDIDATE = 10 + OPS_BILINEAR + OPS_SEGMENT + 5 * OPS_SAMPLE
+NO_LIBRARY_DESCENT = "no PyTorch call computes a descent march"
+
+
+def descent_inputs(model, knobs, s, sx, sy, pairs, dnx):
+    """(mat_flat, tidx, src_xy, rec_xy, spec, cross) of a descent over
+    ``pairs`` with trace_rays_descent's ``knobs``; ``cross`` is the
+    crossing budget of its relaxation and times."""
+    from alifmm_tpu_torch import rays, weld_data
+
+    kw = dict(max_steps=None, step_scale=6.0, score_k=0, score_stride=1.0,
+              mode="interp")
+    kw.update({k: v for k, v in knobs.items() if k in kw})
+    spec = rays.descent_spec(model, s, **kw)
+    _, _, src_xy, rec_xy, tidx = weld_data.ray_pairs(sx, sy, pairs, dnx, s)
+    dev = model.device
+    cross = max(knobs.get("max_cross", 16), int(2 * spec.step_scale) + 6)
+    return (rays._material_flat(model),
+            torch.as_tensor(tidx).to(torch.int64).to(dev),
+            torch.as_tensor(src_xy).to(model.dtype).to(dev),
+            torch.as_tensor(rec_xy).to(model.dtype).to(dev), spec, cross)
+
+
+def descent_vs_twin(args, want, cross, dtype, what):
+    """K4 as a bare launch and through the wrapper
+    ``cuda_rays.march_descent`` against the twin's result ``want``, to
+    the march's tolerances (``compare_march``).  Returns the differences
+    by key."""
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    model, mat_flat, spec = args[0], args[1], args[6]
+    p = cuda_rays.prepare_march_descent(*args)
+    p.run()
+    runs = [(f"bare, {p.plan['lanes']} lanes a ray", p.out),
+            ("through the wrapper", cuda_rays.march_descent(*args))]
+    torch.cuda.synchronize()
+    vertex, equal = 0.0, 1.0
+    for how, got in runs:
+        v, e = compare_march(got, want, model, mat_flat, spec.s, cross,
+                             dtype, f"K4 {what}, {how}")
+        vertex, equal = max(vertex, v), min(equal, e)
+    return dict(descent=vertex, descent_unequal=1.0 - equal)
+
+
+def check_trace_descent(args, knobs, cross, dtype, what):
+    """``rays.trace_rays_descent`` on the card: one K4 and one K3 launch
+    and no plain step; its lengths and reasons are K4's, and its polylines
+    and times equal K3's twin (``relax_and_times_plain``, the waves and
+    crossing budget the tracer states) run on K4's polylines, within the
+    relaxation's tolerance.  Returns the differences by key."""
+    from alifmm_tpu_torch import rays
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    model, mat_flat, fields, tidx, src, rec, spec = args
+    before, steps0 = dict(cuda_rays.LAUNCHES), rays.PLAIN_STEPS
+    got = rays.trace_rays_descent(model, fields, tidx, src, rec, spec.s,
+                                  return_reason=True, **knobs)
+    torch.cuda.synchronize()
+    launched = {k: cuda_rays.LAUNCHES[k] - before[k] for k in before}
+    check(launched["descent"] == 1 and launched["relax_times"] == 1
+          and launched["march"] == 0 and rays.PLAIN_STEPS == steps0,
+          f"trace_rays_descent {what} launched {launched}")
+    p = cuda_rays.prepare_march_descent(*args)
+    p.run()
+    bx, by, length, reason, _ = p.out
+    check(torch.equal(got[2], length) and torch.equal(got[4], reason),
+          f"trace_rays_descent {what}: lengths or reasons are not K4's")
+    wx, wy, wt = rays.relax_and_times_plain(
+        model, mat_flat, bx, by, length, spec.s,
+        2 * knobs.get("relax_iters", 2), relax_cross=cross,
+        quad=knobs.get("relax_quad", True), times_cross=cross)
+    torch.cuda.synchronize()
+    ax, rx = worst_rel(got[0], wx)
+    ay, ry = worst_rel(got[1], wy)
+    at, rt = worst_rel(got[3], wt)
+    log(f"  trace_rays_descent {what}: launches {launched['descent']} K4, "
+        f"{launched['relax_times']} K3; against K3's twin on K4's "
+        f"polylines: vertices max rel {max(rx, ry):.3e}, times max abs "
+        f"{at:.3e} s, max rel {rt:.3e} (tolerance {TOL_SEG[dtype]:.0e})")
+    check(max(rx, ry, rt) <= TOL_SEG[dtype],
+          f"trace_rays_descent {what} differs from its composed twin")
+    return dict(relax_vertices=max(ax, ay), relax_times=at,
+                relax_times_rel=rt)
+
+
+def check_descent(case, dtype, device):
+    """One case of DESCENT_CASES on 48 x 56 (25 rays through 5 fields
+    solved on the card, on the refined grid for the grid cases): K4
+    against descent_plain, then trace_rays_descent.  Returns the largest
+    differences by key."""
+    from alifmm_tpu_torch import rays, solver, weld_data
+
+    knobs, s, fine = DESCENT_CASES[case]
+    model = small_model(dtype, device)
+    dnx = float(model.dnx)
+    sx, sy, pairs = weld_data.transducers(model.shape, dnx, 5, 10)
+    scx, scz = weld_data.ray_pairs(sx, sy, pairs, dnx)[:2]
+    ttfs = solver.solve_ttf(model, torch.as_tensor(scx), torch.as_tensor(scz),
+                            s if fine else 1, solver.SolveConfig(**SOLVE_KW))
+    mat_flat, tidx, src, rec, spec, cross = descent_inputs(
+        model, knobs, s, sx, sy, pairs, dnx)
+    args = (model, mat_flat, ttfs, tidx, src, rec, spec)
+    want = rays.descent_plain(*args)
+    what = f"48x56 {case} {str(dtype).replace('torch.', '')}"
+    errs = descent_vs_twin(args, want, cross, dtype, what)
+    merge_worst(errs, check_trace_descent(args, knobs, cross, dtype, what))
+    return errs
+
+
+def phase_descent_vs_plain(device):
+    """(4c): every case of DESCENT_CASES in float64 and float32."""
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        for case in DESCENT_CASES:
+            merge_worst(worst, check_descent(case, dtype, device))
+    return worst
+
+
+def descent_bound(fields, mat_flat, model, spec, steps, P):
+    """K4's bound for this run's rays.  Operations from the steps the
+    twin took (``steps``): OPS_DESCENT_STEP a step, and with the window
+    OPS_WINDOW_STEP plus score_k x OPS_WINDOW_CANDIDATE.  Bytes, each
+    counted once: the field cells its bilinear samples read (4 a sample,
+    one sample a step and one a candidate, at most the stack), the
+    material rows its cells and Simpson samples read (at most all rows),
+    the skew table (and with the window the curve table), the rays'
+    inputs and its outputs."""
+    R = steps.shape[0]
+    n_steps = int(steps.sum())
+    K = spec.score_k
+    item = fields.element_size()
+    ops = n_steps * (OPS_DESCENT_STEP
+                     + (OPS_WINDOW_STEP + K * OPS_WINDOW_CANDIDATE if K
+                        else 0))
+    tables = model.ray_skew.numel() + (model.ray_curves.numel() if K else 0)
+    nbytes = (min(fields.numel(), n_steps * 4 * (1 + K)) * item
+              + min(mat_flat.shape[0], n_steps * (1 + 5 * K))
+              * mat_flat.shape[1] * item
+              + tables * item + (4 * R + 2 * R * P) * item + 4 * R * 8)
+    log(f"  K4 bound: {n_steps} steps, {nbytes / 1e6:.3f} MB and "
+        f"{ops / 1e9:.4f} Gop")
+    return roofline(ops, nbytes)
+
+
+def time_descent(args, want, ms_twin, n=10):
+    """K4 on ``args`` warm: the bare launch with its outputs allocated
+    beforehand and the call through its wrapper (CUDA events over n
+    calls), the longest ray's dependent steps and the time a step, beside
+    its bound (from the twin's run ``want``) and the twin's time."""
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    model, mat_flat, fields, spec = args[0], args[1], args[2], args[6]
+    p = cuda_rays.prepare_march_descent(*args)
+    bare = time_events(p.run, n)
+    wrapper = time_events(lambda: cuda_rays.march_descent(*args), n)
+    steps = p.out[4]
+    chain = int(steps.max())
+    us = bare * 1e3 / chain
+    log(f"  K4 {bare:.4f} ms bare, {wrapper:.4f} ms through the wrapper, for "
+        f"{args[3].shape[0]} rays (score_k {spec.score_k}, "
+        f"{p.plan['lanes']} lanes a ray, max_steps {spec.max_steps}); the "
+        f"longest ray takes {chain} dependent steps: {us:.3f} us a step; all "
+        f"rays {int(steps.sum())} steps; twin {ms_twin:.1f} ms")
+    timed = dict(ms=bare, wrapper_ms=wrapper, chain=chain, us_per_step=us,
+                 steps=int(steps.sum()), plain_ms=ms_twin,
+                 rays=int(args[3].shape[0]), score_k=spec.score_k)
+    b, by_what = descent_bound(fields, mat_flat, model, spec, want[4],
+                               want[0].shape[1])
+    timed.update(bound_ms=b, bound_by=by_what, share=b / bare)
+    log(f"    bound {b:.5f} ms ({by_what}), share of the bare time "
+        f"{b / bare:.4f}; library call: none ({NO_LIBRARY_DESCENT})")
+    return timed
+
+
+def descent_at_shape(model, fields, geometry, knobs, s, dtype, worst, what,
+                     timed=True):
+    """K4 on these fields against its twin (bare and through the wrapper),
+    trace_rays_descent against its composed twin, and (``timed``) K4
+    timed beside its bound and the twin.  The differences go into
+    ``worst``."""
+    from alifmm_tpu_torch import rays
+
+    mat_flat, tidx, src, rec, spec, cross = descent_inputs(
+        model, knobs, s, *geometry)
+    args = (model, mat_flat, fields, tidx, src, rec, spec)
+    ms_twin, want = time_host(lambda: rays.descent_plain(*args))
+    merge_worst(worst, descent_vs_twin(args, want, cross, dtype, what))
+    merge_worst(worst, check_trace_descent(args, knobs, cross, dtype, what))
+    return time_descent(args, want, ms_twin) if timed else None
+
+
+def phase_descent_weld(inputs, ttfs, worst, device):
+    """(7b): K4 at the weld shape (961 rays through the 31 model-grid
+    fields of phase 6), the facade's descent defaults and score_k 5, in
+    float64 and float32 against its twin; timed in float32."""
+    from alifmm_tpu_torch import weld_data
+
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        model = (inputs[0] if dtype == torch.float32
+                 else ray_model("weld", dtype, device))
+        for k in (0, 5):
+            t = descent_at_shape(
+                model, ttfs.to(dtype), (sx, sy, pairs, dnx),
+                dict(score_k=k), weld_data.SUBGRID, dtype, worst,
+                f"weld score_k {k} {str(dtype)[6:]}",
+                timed=dtype == torch.float32)
+            if t is not None:
+                out[f"score_k {k}"] = t
+    return out
+
+
+def phase_descent_fine(inputs, fine, worst):
+    """(10b): K4 in grid mode at the weld shape, on the fine fields of
+    phase 9 (31 x 3808 x 4492), score_k 0 and 5: float32 against its twin
+    and timed, float64 (a 4.2 GB copy of the fields) against its twin."""
+    from alifmm_tpu_torch import weld_data
+
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    geometry = (sx, sy, pairs, dnx)
+    out = {}
+    for k in (0, 5):
+        out[f"score_k {k}"] = descent_at_shape(
+            inputs[0], fine["ttfs"], geometry, dict(mode="grid", score_k=k),
+            weld_data.SUBGRID, torch.float32, worst,
+            f"fine weld grid score_k {k} float32")
+    model64 = ray_model("weld", torch.float64, inputs[0].device)
+    fields64 = fine["ttfs"].double()
+    for k in (0, 5):
+        descent_at_shape(model64, fields64, geometry,
+                         dict(mode="grid", score_k=k), weld_data.SUBGRID,
+                         torch.float64, worst,
+                         f"fine weld grid score_k {k} float64", timed=False)
+    del fields64
+    return out
+
+
+def fmc_geometry():
+    """The FMC workload: the weld of weld_data.workload(0) with every pair
+    of its 62 transducers (the upper triangle): 61 receivers, 1891 rays."""
+    from alifmm_tpu_torch import weld_data
+
+    veln, velpn, vel_map, stif, sx, sy, _, dnx = weld_data.workload(0)
+    n = len(sx)
+    return (veln, velpn, vel_map, stif, sx, sy,
+            np.triu(np.ones((n, n)), k=1), dnx)
+
+
+def routed_knobs(tracer):
+    """The knobs the facade passes to ``tracer`` for FMC_RAY_OPTS."""
+    import warnings
+
+    import alifmm_tpu_torch
+
+    fn = alifmm_tpu_torch.api._TRACERS[tracer]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return alifmm_tpu_torch.ALI_FMM._route_ray_opts(
+            tracer, fn, dict(FMC_RAY_OPTS))
+
+
+def expected_launches(tracer, n_chunks):
+    return {"search": dict(march=1, relax_times=1, descent=0),
+            "descent": dict(march=0, relax_times=1, descent=1),
+            "auto": dict(march=n_chunks, relax_times=1 + n_chunks,
+                         descent=1)}[tracer]
+
+
+def check_tracer_counts(counts, tracer, n_chunks, what):
+    want = expected_launches(tracer, n_chunks)
+    check(counts["sweep_pass"] > 0, f"{what} launched no sweep_pass kernel")
+    for name, n in want.items():
+        check(counts[name] == n,
+              f"{what} launched {counts[name]} {name} kernels, not {n}")
+    check(counts["plain_passes"] == 0 and counts["plain_steps"] == 0,
+          f"{what} ran a plain twin on the card")
+
+
+def phase_fmc(device):
+    """(11): the FMC slice (61 fields of 424 x 500, 1891 rays, float32)
+    with each tracer, directly (solve_ttf, then the tracer with the knobs
+    the facade routes to it; a warm-up run, then a timed one with every
+    count set to 0 just before it) and through ALI_FMM (a warm-up call,
+    then a timed one likewise); K4 timed on the FMC fields."""
+    import warnings
+
+    import alifmm_tpu_torch
+    from alifmm_tpu_torch import grid, rays, solver, weld_data
+
+    alifmm_tpu_torch.tqdm_disable = True
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = fmc_geometry()
+    s = weld_data.SUBGRID
+    model = grid.make_model(veln, velpn, vel_map, stif, None, None, dnx,
+                            dtype=torch.float32, device=device)
+    scx, scz, src_xy, rec_xy, tidx = weld_data.ray_pairs(sx, sy, pairs, dnx)
+    n_rays = len(tidx)
+    check(len(scx) == 61 and n_rays == 1891,
+          f"FMC geometry: {len(scx)} receivers, {n_rays} rays")
+
+    def dev(a, dt=torch.float32):
+        return torch.as_tensor(a).to(dt).to(device)
+
+    scx_d, scz_d, src, rec = dev(scx), dev(scz), dev(src_xy), dev(rec_xy)
+    tidx_d = dev(tidx, torch.int64)
+    fns = {"search": rays.trace_rays, "descent": rays.trace_rays_descent,
+           "auto": rays.trace_rays_auto}
+    cfg = solver.SolveConfig(**FMC_SOLVE)
+
+    def run(tracer):
+        # the search and descent marches say why each ray ended
+        extra = {} if tracer == "auto" else dict(return_reason=True)
+        t0 = time.perf_counter()
+        ttfs = solver.solve_ttf(model, scx_d, scz_d, 1, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fns[tracer](model, ttfs, tidx_d, src, rec, s, mode="interp",
+                          **routed_knobs(tracer), **extra)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return ttfs, out, (t1 - t0, t2 - t1, t2 - t0)
+
+    res, times, lens, ok = {}, {}, {}, {}
+    ttfs = None
+    for tracer in TRACERS:
+        run(tracer)
+        reset_counts()
+        ttfs, out, (t_solve, t_rays, wall) = run(tracer)
+        counts = read_counts()
+        lens[tracer], times[tracer] = out[2], out[3]
+        if tracer != "auto":
+            # arrived: ended for reason 0 within the step budget (the
+            # relaxation may move the last marched vertex afterwards)
+            budget = routed_knobs(tracer)["max_steps"]
+            ok[tracer] = (out[4] == 0) & (out[2] - 2 < budget)
+        else:
+            # a ray the certificate kept is the descent's; a retraced one
+            # is the search's, the same march on the same inputs
+            kept = out[3] == times["descent"]
+            same = torch.where(kept, out[2] == lens["descent"],
+                               (out[2] == lens["search"])
+                               & (out[3] == times["search"]))
+            check(bool(same.all()), f"FMC auto: {int((~same).sum())} rays "
+                  f"are neither the descent's nor the search's")
+            ok[tracer] = torch.where(kept, ok["descent"], ok["search"])
+        t = times[tracer]
+        fin = torch.isfinite(t) & (t > 0)
+        log(f"  FMC direct, tracer {tracer}: warm wall clock {wall:.4f} s "
+            f"(solve {t_solve:.4f} s, rays {t_rays:.4f} s); "
+            f"{int(ok[tracer].sum())} of {n_rays} rays arrive, "
+            f"{int(fin.sum())} finite positive times; steps max "
+            f"{int(out[2].max()) - 2}; counts {counts}")
+        check(bool(ok[tracer].all()) and bool(fin.all()),
+              f"FMC {tracer}: {n_rays - int(ok[tracer].sum())} rays did not "
+              f"arrive, {n_rays - int(fin.sum())} times not finite and "
+              f"positive")
+        res[tracer] = dict(wall=wall, solve=t_solve, rays=t_rays,
+                           counts=counts)
+    # the certificate of the auto tracer, as trace_rays_auto computes it
+    tol = routed_knobs("auto").get("tol", 3e-3)
+    chunk = routed_knobs("auto").get("retrace_chunk", 128)
+    t_true = rays._sample_ttf(ttfs, src[:, 0], src[:, 1], s, "interp",
+                              tidx_d)
+    flagged = int((~(times["descent"] <= (1.0 + tol) * t_true)).sum())
+    n_chunks = -(-flagged // chunk)
+    for tracer in TRACERS:
+        check_tracer_counts(res[tracer]["counts"], tracer, n_chunks,
+                            f"FMC direct {tracer}")
+    above = int((times["auto"] > times["descent"]).sum())
+    check(above == 0, f"FMC: {above} auto times above their descent times")
+    gaps = {}
+    for tracer in ("descent", "auto"):
+        rel = ((times[tracer].double() - times["search"].double())
+               / times["search"].double())
+        gaps[tracer] = dict(median=float(rel.median()),
+                            max=float(rel.abs().max()),
+                            min=float(rel.min()))
+        log(f"  FMC {tracer} times against search times: relative "
+            f"difference median {gaps[tracer]['median']:.4e}, max |.| "
+            f"{gaps[tracer]['max']:.4e}, min {gaps[tracer]['min']:.4e}")
+    log(f"  FMC auto: {flagged} of {n_rays} rays flagged by the certificate "
+        f"(tol {tol}), {n_chunks} retrace chunks of {chunk}")
+
+    for tracer in TRACERS:
+        fm = alifmm_tpu_torch.ALI_FMM(
+            veln, velpn, vel_map, sx, sy, stif_den=stif, dnx=dnx,
+            ttf_mode="interp", solve_opts=FMC_SOLVE,
+            ray_opts=dict(FMC_RAY_OPTS, tracer=tracer))
+
+        def call():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                t0 = time.perf_counter()
+                tmat = fm.find_all_TTF_rays_parallel(
+                    veln, velpn, vel_map, stif_den=stif, n_threads=8,
+                    subgrid_size=s)
+                torch.cuda.synchronize()
+                return tmat, time.perf_counter() - t0
+
+        call()
+        reset_counts()
+        tmat, wall = call()
+        counts = read_counts()
+        check_tracer_counts(counts, tracer, n_chunks, f"FMC facade {tracer}")
+        traced = np.triu(np.ones((len(sx), len(sx)), bool), k=1)
+        check(bool(np.isfinite(tmat).all()) and bool((tmat[traced] > 0).all())
+              and not tmat[~traced].any(),
+              f"FMC facade {tracer}: time matrix not positive on exactly "
+              f"the {n_rays} pairs")
+        check(np.array_equal(fm.ray_len > 0, traced),
+              f"FMC facade {tracer}: ray_len not positive on the pairs")
+        # the facade's rays are the direct path's (the same lengths and
+        # times), which all arrived
+        pi, pj = np.nonzero(traced)
+        direct = times[tracer].double().cpu().numpy()
+        rel = float((np.abs(tmat[pi, pj] - direct) / direct).max())
+        same_len = np.array_equal(fm.ray_len[pi, pj],
+                                  lens[tracer].cpu().numpy())
+        log(f"  FMC facade, tracer {tracer}: warm call {wall:.4f} s; ray "
+            f"lengths {'equal' if same_len else 'not equal'} to the direct "
+            f"path's, times against its max rel {rel:.3e}; counts {counts}")
+        check(same_len and rel <= 1e-6, f"FMC facade {tracer}: rays differ "
+              f"from the direct path's")
+        res[tracer].update(facade_wall=wall, facade_counts=counts)
+
+    # K4 on the FMC fields: the facade's descent defaults and score_k 5
+    worst = {}
+    k4 = {}
+    for k in (0, 5):
+        k4[f"score_k {k}"] = descent_at_shape(
+            model, ttfs, (sx, sy, pairs, dnx), dict(score_k=k), s,
+            torch.float32, worst, f"FMC score_k {k} float32")
+    return dict(tracers=res, gaps=gaps, flagged=flagged, chunks=n_chunks,
+                k4=k4, worst=worst)
+
+
+def busy_share(path):
+    """From a Chrome trace of torch.profiler: the share of the traced span
+    in which a kernel, copy or fill ran on the device (overlaps counted
+    once), the number of such device events, and the five kernels with
+    the most device time (ms).  (None, 0, []) without device events."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh).get("traceEvents", [])
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                  e.get("name", "")) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not dev:
+        return None, 0, []
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, end = 0.0, -np.inf
+    by_name = {}
+    for a, b, name in dev:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return busy / (t1 - t0), len(dev), [(n[:80], ms) for n, ms in top]
+
+
+def phase_profiles(inputs, device):
+    """(12): one utils/profiling.trace each of a warm weld slice (phase
+    6's direct path) and a warm FMC slice with the descent tracer, and
+    the device's busy share in each."""
+    import shutil
+    import tempfile
+
+    from alifmm_tpu_torch import rays, solver, weld_data
+    from alifmm_tpu_torch.utils import profiling
+
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = fmc_geometry()
+    scx, scz, src_xy, rec_xy, tidx = weld_data.ray_pairs(sx, sy, pairs, dnx)
+    model = inputs[0]
+
+    def fmc_descent():
+        ttfs = solver.solve_ttf(
+            model, torch.as_tensor(scx).float().to(device),
+            torch.as_tensor(scz).float().to(device), 1,
+            solver.SolveConfig(**FMC_SOLVE))
+        rays.trace_rays_descent(
+            model, ttfs, torch.as_tensor(tidx).to(device),
+            torch.as_tensor(src_xy).float().to(device),
+            torch.as_tensor(rec_xy).float().to(device), weld_data.SUBGRID,
+            mode="interp", **routed_knobs("descent"))
+
+    out = {}
+    for name, fn in (("weld slice", lambda: run_slice(inputs)),
+                     ("FMC slice, descent", fmc_descent)):
+        fn()
+        torch.cuda.synchronize()
+        log_dir = tempfile.mkdtemp(prefix="alifmm_trace_")
+        try:
+            t0 = time.perf_counter()
+            with profiling.trace(log_dir):
+                fn()
+            wall = time.perf_counter() - t0
+            share, n_dev, top = busy_share(
+                os.path.join(log_dir, profiling.TRACE_FILE))
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+        if share is None:
+            log(f"  profile of the {name}: no device events in the trace "
+                f"(busy share not measured)")
+        else:
+            log(f"  profile of the {name}: {wall:.4f} s under the profiler, "
+                f"{n_dev} device events, busy share {share:.4f}; most device "
+                f"time: " + "; ".join(f"{n} {ms:.3f} ms" for n, ms in top))
+        out[name] = dict(busy_share=share, device_events=n_dev,
+                         profiled_wall=wall, top=top)
+    return out
+
+
 SCORER_NAMES = {0: "simpson3", 1: "simpson5", 2: "walk", 3: "exact"}
 
 
@@ -1946,17 +2516,25 @@ def build_kernels():
     returns ptxas' registers and spills by kernel."""
     from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep
 
+    builds = (cuda_sweep.build, cuda_rays.build, cuda_rays.build_descent)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(mod.build, verbose=True)
-                for mod in (cuda_sweep, cuda_rays)]
-        for job in jobs:
-            job.result()
-    log(f"[2] K1 (sweep.cu) and K2, K3 (rays.cu) built in "
-        f"{time.perf_counter() - t0:.2f} s")
+
+    def timed(build):
+        t = time.perf_counter()
+        build(verbose=True)
+        return time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        jobs = [pool.submit(timed, b) for b in builds]
+        secs = [job.result() for job in jobs]
+    log(f"[2] K1 (sweep.cu), K2 and K3 (rays.cu) and K4 (descent.cu) built "
+        f"in {time.perf_counter() - t0:.2f} s, at once (each: "
+        + ", ".join(f"{n} {t:.2f} s" for n, t in
+                    zip(("sweep.cu", "rays.cu", "descent.cu"), secs)) + ")")
     regs = {}
-    for mod in (cuda_sweep, cuda_rays):
-        regs.update(ptxas_summary(mod.BUILD_LOG))
+    for report in (cuda_sweep.BUILD_LOG, cuda_rays.BUILD_LOG,
+                   cuda_rays.DESCENT_BUILD_LOG):
+        regs.update(ptxas_summary(report))
     for name, (n, spill) in regs.items():
         log(f"    ptxas: {name[:120]}: {n} registers, {spill} bytes of "
             f"spill")
@@ -2007,6 +2585,9 @@ def main():
     log("[4b] the ray kernels' fine-path instantiations against their plain "
         "twins: nearest-point tap, exact materials, fast strides")
     merge_worst(ray_worst, phase_fine_rays_vs_plain(device))
+    log("[4c] K4 (the descent march) against its plain twin on 48 x 56, "
+        "and trace_rays_descent against its composed twin")
+    descent_worst = phase_descent_vs_plain(device)
     log("[5] analytic check at full size")
     phase_analytic(device)
     log("[5b] K1 against its plain twin at the fine path's patch shapes")
@@ -2024,6 +2605,16 @@ def main():
     log("[7] ray kernels at the weld shape: against their twins, and timed "
         "beside their bounds")
     weld = phase_ray_kernels_weld(inputs, ttfs, ray_worst, device)
+    log("[7b] K4 at the weld shape (961 rays, the fields of phase 6): "
+        "against its twin, and timed beside its bound")
+    k4_weld = phase_descent_weld(inputs, ttfs, descent_worst, device)
+    log("[7c] the FMC slice (61 fields, 1891 rays, float32) with each "
+        "tracer, direct and through the facade")
+    fmc = phase_fmc(device)
+    merge_worst(descent_worst, fmc["worst"])
+    log("[7d] device profiles (utils/profiling.trace) of a warm weld slice "
+        "and a warm FMC slice")
+    profiles = phase_profiles(inputs, device)
     log("[8] K1 warm at every stage shape, beside its bound; one plain pass "
         "at the final shape")
     shapes, ms_p, abs_e = phase_pass_timing(inputs)
@@ -2035,6 +2626,9 @@ def main():
         "its twin for one source at the final shape; K2 and K3 on the fine "
         "fields, beside their bounds")
     fine_shapes, fine_rays = phase_fine_timing(inputs, fine)
+    log("[10b] K4 in grid mode on the fine fields: against its twin, and "
+        "timed beside its bound")
+    k4_fine = phase_descent_fine(inputs, fine, descent_worst)
     for key in fine_rays:
         merge_worst(ray_worst, fine_rays[key].pop("errs"))
     vs_twin = fine_shapes[-1]["vs_twin"]
@@ -2095,6 +2689,31 @@ def main():
                  "relax_times"]),
         weld["relax_times"], defaults["relax_times"], regs,
         "relax_times_kernel"))
+    kernels.append({
+        "name": "K4 descent march",
+        "route": "cuda",
+        "source": "alifmm_tpu_torch/csrc/descent.cu",
+        "replaces": "alifmm_tpu/rays.py:1121",
+        "launches": fmc["tracers"]["descent"]["facade_counts"]["descent"],
+        "max_abs_err": descent_worst["descent"],
+        "rays_equal_share": 1.0 - descent_worst["descent_unequal"],
+        "max_abs_err_relaxed_vertices": descent_worst["relax_vertices"],
+        "max_rel_err_times": descent_worst["relax_times_rel"],
+        **{k: k4_weld["score_k 0"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "weld": k4_weld,
+        "fmc": fmc["k4"],
+        "grid_tap": k4_fine,
+        "launches_auto": fmc["tracers"]["auto"]["facade_counts"]["descent"],
+        "registers_f32": {k: v[0] for k, v in regs.items()
+                          if k.startswith("descent_kernel<f")},
+        "spill_bytes_f64": max([v[1] for k, v in regs.items()
+                                if k.startswith("descent_kernel<d")] or [0]),
+        "fmc_slice": dict(tracers=fmc["tracers"], gaps=fmc["gaps"],
+                          flagged=fmc["flagged"], chunks=fmc["chunks"]),
+        "profiles": profiles,
+    })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -331,8 +331,6 @@ def test_update_parallel_low_mem_writes_fields(world, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw, where", [
-    (dict(ray_opts=dict(tracer="descent")), "call"),
-    (dict(ray_opts=dict(tracer="auto")), "call"),
     (dict(grid_mesh=object()), "init"),
 ])
 def test_waiting_modes_raise_not_implemented(world, kw, where):

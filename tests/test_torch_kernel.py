@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch twins on a CUDA device:
-K1 (csrc/sweep.cu) and the ray kernels K2 and K3 (csrc/rays.cu), with
+K1 (csrc/sweep.cu), the ray kernels K2 and K3 (csrc/rays.cu), with
 their fine-path instantiations (nearest-point tap, exact materials,
-fast-stride mask).
+fast-stride mask), and K4, the descent march (csrc/descent.cu).
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip without a
 card; on the card, ``python3 chip_smoke.py`` runs the same comparisons (it
@@ -60,6 +60,30 @@ def test_fine_path_march_matches_plain_twin(device, dtype, case):
 def test_exact_segment_integrators_match_plain_twins(device, dtype, model):
     """The four integrators on the stiffness rows of exact_materials."""
     chip_smoke.check_segments(model, dtype, device, exact=True)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.DESCENT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_descent_matches_plain_twin(device, dtype, case):
+    """K4 on 48 x 56 with and without its scored window, on fields of the
+    model grid and of the refined grid, against descent_plain (bare and
+    through the wrapper); trace_rays_descent against K3's twin on K4's
+    polylines."""
+    chip_smoke.check_descent(case, dtype, device)
+
+
+def test_descent_wrapper_rejects_an_even_window(device):
+    from alifmm_tpu_torch import rays
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    model = chip_smoke.small_model(torch.float64, device)
+    spec = rays.DescentSpec(9, 6.0, 10, 4, 1.0, False)
+    ttf = torch.zeros((1, 48, 56), dtype=torch.float64, device=device)
+    xy = torch.zeros((2, 2), dtype=torch.float64, device=device)
+    idx = torch.zeros(2, dtype=torch.int64, device=device)
+    with pytest.raises(ValueError):
+        cuda_rays.march_descent(model, rays._material_flat(model), ttf, idx,
+                                xy, xy, spec)
 
 
 def test_ray_wrappers_reject_mismatched_tensors(device):
