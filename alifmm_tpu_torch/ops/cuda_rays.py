@@ -28,8 +28,10 @@ group table or the Christoffel solve per sample.  ``MarchSpec.grid``
 picks K2's nearest-point field tap over the bilinear one, and a march
 with ``MarchSpec.k_fast`` reads the uniform mask ``fast``.  Each choice
 is a separate instantiation of the kernel in ``csrc/rays.cu``.  K4 reads
-the 4-column rows and the skew table from device memory; its scored
-window (``DescentSpec.score_k`` > 0) is the warp-a-ray instantiation.
+the 4-column rows, a warp a ray, with the skew table (and for its scored
+window, ``DescentSpec.score_k`` > 0, the curve table) in shared memory
+where it fits; ``shared=False`` on ``prepare_march_descent`` keeps them in
+device memory.
 """
 
 from __future__ import annotations
@@ -86,7 +88,11 @@ _SIZES = {"alifmm_march_smem": [_I32] * 6,
           "alifmm_relax_times_smem": [_I32] * 5}
 _DESCENT_ARGTYPES = ([_PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _PTR, _PTR,
                       _I64, _I32, _I32] + [_PTR] * 8 + [_I32] * 6
-                     + [_F64] * 8 + [_PTR])
+                     + [_F64] * 8 + [_I32, _I32, _PTR, _PTR])
+# columns of K4's profile output (kProfCols in csrc/descent.cu)
+DESCENT_PARTS = ("tap", "row", "rest", "score", "reduce")
+DESCENT_PROFILE = DESCENT_PARTS + ("exact_steps", "window_pieces",
+                                   "exact_pieces")
 
 
 def build(verbose: bool = False):
@@ -123,6 +129,11 @@ def build_descent(verbose: bool = False):
         fn = getattr(lib, "alifmm_descent" + suffix)
         fn.argtypes = _DESCENT_ARGTYPES
         fn.restype = _I32
+        fn = getattr(lib, "alifmm_descent_occupancy" + suffix)
+        fn.argtypes = [_I32, _I32, _I64]
+        fn.restype = _I32
+    lib.alifmm_descent_smem.argtypes = [_I32] * 4
+    lib.alifmm_descent_smem.restype = _I64
     _DESCENT_LIB = lib
     return lib
 
@@ -304,9 +315,18 @@ def march(model: gridlib.Model, mat_flat, rec_ttf, ttf_index, source_xy,
 
 
 def prepare_march_descent(model: gridlib.Model, mat_flat, rec_ttf,
-                          ttf_index, source_xy, receiver_xy,
-                          spec) -> Prepared:
-    """K4's launch on CUDA tensors (see ``march_descent``)."""
+                          ttf_index, source_xy, receiver_xy, spec,
+                          shared: bool = True, fast: bool = True,
+                          profile: bool = False) -> Prepared:
+    """K4's launch on CUDA tensors (see ``march_descent``).  The skew
+    table (and with the window the curve table) goes into shared memory
+    where it fits; ``shared=False`` keeps it in device memory, which only
+    the checks pass.  ``fast=False`` runs every float32 step exactly, not
+    first on the fast paths of its divides, roots, atan2 and sin/cos (the
+    same result; for the checks and the timings).  ``profile`` launches the float32 build that
+    adds clock64 cycles by part of the step, and counts the steps run
+    again exactly, the window's pieces and those run again exactly, into
+    an (R, 8) int64 output whose columns ``DESCENT_PROFILE`` names."""
     dt, dev = model.dtype, model.device
     R = source_xy.shape[0]
     if rec_ttf.dim() not in (2, 3):
@@ -327,17 +347,25 @@ def prepare_march_descent(model: gridlib.Model, mat_flat, rec_ttf,
     if mat[7] != MAT_CURVES:
         raise ValueError("the descent reads the unified curve rows "
                          "(4 columns)")
+    if profile and dt != torch.float32:
+        raise TypeError("the descent's profiling build is float32 only")
     skew = _check("ray_skew", model.ray_skew, dt, dev,
                   tuple(model.ray_curves.shape))
     Z, X = model.shape
     s = spec.s
     rows, cols = (TZ, TX) if spec.grid else ((Z - 1) * s + 1, (X - 1) * s + 1)
+    item = rec_ttf.element_size()
+    smem_of = build_descent().alifmm_descent_smem
+    tables_smem = bool(shared) and smem_of(K, 1, mat[2], item) <= MAX_SMEM
+    smem = smem_of(K, int(tables_smem), mat[2], item)
     P = spec.max_steps + 2
     bx = torch.zeros((R, P), dtype=dt, device=dev)
     by = torch.zeros((R, P), dtype=dt, device=dev)
     length = torch.empty(R, dtype=torch.int64, device=dev)
     reason = torch.empty(R, dtype=torch.int64, device=dev)
     steps = torch.empty(R, dtype=torch.int64, device=dev)
+    prof = (torch.zeros((R, len(DESCENT_PROFILE)), dtype=torch.int64,
+                        device=dev) if profile else None)
     args = mat[:7] + [
         skew.data_ptr(), rec_ttf.data_ptr(),
         TZ * TX if rec_ttf.dim() == 3 else 0, TZ, TX, ttf_index.data_ptr(),
@@ -346,11 +374,13 @@ def prepare_march_descent(model: gridlib.Model, mat_flat, rec_ttf,
         spec.max_steps, K, rows, cols, 1.0 if spec.grid else float(s),
         float(s), spec.step_scale * s, ((spec.step_scale + 3.0) * s) ** 2,
         (4.0 * s) ** 2, (1.6 * s) ** 2, (K - 1) / 2.0,
-        spec.score_stride * s]
+        spec.score_stride * s, int(tables_smem), int(fast),
+        None if prof is None else prof.data_ptr()]
+    out = (bx, by, length, reason, steps) + ((prof,) if profile else ())
     return Prepared("descent", _fn("alifmm_descent", dt, build_descent),
-                    args, (bx, by, length, reason, steps),
+                    args, out,
                     held + (skew, rec_ttf, ttf_index, src, rec), dev,
-                    dict(lanes=32 if K else 1))
+                    dict(lanes=32, tables_smem=tables_smem, smem=smem))
 
 
 def march_descent(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
@@ -489,7 +519,13 @@ def segments(model: gridlib.Model, mat_flat, kind: int, x1, y1, x2, y2,
 def occupancy(p: Prepared, scorer: int, dtype) -> int:
     """Blocks of ``p``'s kernel resident per SM at its shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); 128 threads a
-    block."""
+    block.  For K4 ``scorer`` is its ``score_k``."""
+    if p.name == "descent":
+        blocks = _fn("alifmm_descent_occupancy", dtype, build_descent)(
+            scorer, int(len(p.out) > 5), p.plan["smem"])
+        if blocks < 0:
+            raise RuntimeError("no occupancy for descent")
+        return blocks
     which = 0 if p.name == "march" else 1
     profile = p.name == "march" and len(p.out) > 5
     blocks = _fn("alifmm_occupancy", dtype)(which, scorer, p.plan["mat_kind"],

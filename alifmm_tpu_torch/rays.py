@@ -43,7 +43,6 @@ from __future__ import annotations
 import math
 import typing
 
-import numpy as np
 import torch
 
 from . import grid as gridlib
@@ -1103,57 +1102,51 @@ def trace_rays_auto(
     field sampled at its source is the first-arrival time, which no path
     beats, so a ray whose time is not within ``(1 + tol)`` of it (NaN
     included) is retraced by the plane search ``trace_rays``
-    (``search_kw``) in chunks of ``retrace_chunk`` rays, the flagged list
-    repeated to fill the last chunk.  A retraced ray replaces the descent
-    ray when its time is lower or the descent time is NaN.  Returns
-    (ray_x, ray_y, lengths, times), padded to the wider step buffer, on
-    the model's device.  The certificate is one host read; each retrace
-    chunk is one launch of K2 and one of K3."""
+    (``search_kw``).  All flagged rays go into one ``trace_rays`` call:
+    a ray's result does not depend on the rays beside it, so the result
+    is the JAX package's at any ``retrace_chunk``, which is accepted and
+    ignored (there it is the batch that XLA compiles once).  A retraced
+    ray replaces the descent ray when its time is lower or the descent
+    time is NaN.  Returns (ray_x, ray_y, lengths, times), padded to the
+    wider step buffer, on the model's device.  The certificate is the one
+    host read (field indices on the card are copied to the host once,
+    before any launch, for the tracers' range checks); on the card the
+    trace is one K4, one K2 and two K3 launches, one K4 and one K3 when
+    no ray is flagged."""
     descent_kw = dict(descent_kw or {})
     search_kw = dict(search_kw or {})
     s = int(subgrid_size)
     dev = model.device
+    tidx_host = torch.as_tensor(ttf_index).cpu()
     rec_ttf, ttf_index, source_xy, receiver_xy = _ray_inputs(
-        model, rec_ttf, ttf_index, source_xy, receiver_xy)
+        model, rec_ttf, tidx_host, source_xy, receiver_xy)
     bx, by, lens, times = trace_rays_descent(
-        model, rec_ttf, ttf_index, source_xy, receiver_xy, s, mode=mode,
+        model, rec_ttf, tidx_host, source_xy, receiver_xy, s, mode=mode,
         **descent_kw)
     src = source_xy.to(model.dtype)
     t_true = _sample_ttf(rec_ttf, src[:, 0], src[:, 1], s, mode,
                          ttf_index if rec_ttf.dim() == 3 else None)
-    bad = (~(times <= (1.0 + tol) * t_true)).cpu().numpy()
-    if not bad.any():
+    idx = torch.nonzero((~(times <= (1.0 + tol) * t_true)).cpu())[:, 0]
+    if not len(idx):
         return bx, by, lens, times
 
-    bx, by, lens, times = (a.cpu().numpy().copy()
-                           for a in (bx, by, lens, times))
-    tidx_host = ttf_index.cpu()
-    idx = np.nonzero(bad)[0]
-    n_chunks = -(-len(idx) // retrace_chunk)
-    padded = np.resize(idx, n_chunks * retrace_chunk)
-    for c in range(n_chunks):
-        sub = padded[c * retrace_chunk:(c + 1) * retrace_chunk]
-        sub_t = torch.from_numpy(sub)
-        rbx, rby, rlens, rtimes = (a.cpu().numpy() for a in trace_rays(
-            model, rec_ttf, tidx_host[sub_t], source_xy[sub_t.to(dev)],
-            receiver_xy[sub_t.to(dev)], s, mode=mode, **search_kw))
-        W = bx.shape[1]
-        if rbx.shape[1] > W:
-            bx = np.pad(bx, ((0, 0), (0, rbx.shape[1] - W)))
-            by = np.pad(by, ((0, 0), (0, rbx.shape[1] - W)))
-        uniq = sub if c + 1 < n_chunks else np.unique(sub)
-        pos = {int(r): k for k, r in enumerate(sub)}
-        for r in uniq:
-            k = pos[int(r)]
-            # both times are integrated exactly, so the lower one is the
-            # better Fermat path; a NaN descent time always loses
-            if not (rtimes[k] < times[r] or np.isnan(times[r])):
-                continue
-            bx[r, :rbx.shape[1]] = rbx[k]
-            by[r, :rby.shape[1]] = rby[k]
-            lens[r] = rlens[k]
-            times[r] = rtimes[k]
-    return tuple(torch.from_numpy(a).to(dev) for a in (bx, by, lens, times))
+    ridx = idx.to(dev)
+    rbx, rby, rlens, rtimes = trace_rays(
+        model, rec_ttf, tidx_host[idx], source_xy[ridx], receiver_xy[ridx],
+        s, mode=mode, **search_kw)
+    W = rbx.shape[1]
+    if W > bx.shape[1]:
+        bx = torch.nn.functional.pad(bx, (0, W - bx.shape[1]))
+        by = torch.nn.functional.pad(by, (0, W - by.shape[1]))
+    # both times are integrated exactly, so the lower one is the better
+    # Fermat path; a NaN descent time always loses
+    d_times = times[ridx]
+    take = (rtimes < d_times) | torch.isnan(d_times)
+    bx[ridx, :W] = torch.where(take[:, None], rbx, bx[ridx, :W])
+    by[ridx, :W] = torch.where(take[:, None], rby, by[ridx, :W])
+    lens[ridx] = torch.where(take, rlens, lens[ridx])
+    times[ridx] = torch.where(take, rtimes, d_times)
+    return bx, by, lens, times
 
 
 def split_at_cell_boundaries(ray_x, ray_y, max_cross_per_seg: int = 16):

@@ -38,10 +38,13 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    followed by K3 on the marched polylines where the rows are exact;
 4c. K4 against its plain twin ``descent_plain`` on 48 x 56, float64 and
    float32, with the facade's descent defaults and with score_k 5, on
-   fields of the model grid and of the refined grid (``DESCENT_CASES``),
-   as a bare launch and through the wrapper ``cuda_rays.march_descent``;
-   then ``trace_rays_descent`` (one K4 and one K3 launch) against K3's
-   twin on K4's polylines (``check_descent``);
+   fields of the model grid and of the refined grid and on a model whose
+   slow band bends the rays (``DESCENT_CASES``), as bare launches (the
+   tables in shared and in device memory; every step exact) and through
+   the wrapper ``cuda_rays.march_descent``, equal ray for ray; then
+   ``trace_rays_descent`` (one K4 and one K3 launch) against K3's twin on
+   K4's polylines; in float32 the share of steps K4's profiling build ran
+   again exactly (``check_descent``);
 5. analytic check at full size: homogeneous isotropic 424 x 500, one
    interior source, relative error against r / v;
 5b. K1 against its plain twin at the fine path's patch shapes (four
@@ -67,17 +70,21 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
 7b. K4 at the weld shape (961 rays through the fields of phase 6), the
    facade's descent defaults and score_k 5: against its twin in float64
    and float32 as in 4c, and timed warm in float32 beside its bound
-   (from the steps the twin took) and the twin's time;
+   (from the steps the twin took) and the twin's time, with the SM clock,
+   the warps resident per SM, the longest ray's step split by part and
+   the shares of steps and window pieces run again exactly (clock64, the
+   float32 build that only the checks launch; likewise wherever K4 is
+   timed);
 7c. the FMC slice (every pair of the 62 transducers: 61 fields of 424 x
    500, 1891 rays, float32) with each tracer (search, descent, auto):
    directly (``solve_ttf``, then the tracer with the knobs the facade
    routes to it) and through ``ALI_FMM``, a warm-up run then a timed one
    with every count set to 0 just before it; every ray arrives with a
    finite positive time, no auto time is above its descent time, the
-   launch counts are the tracer's (auto: one K4, and one K2 and one K3
-   per retrace chunk), the facade's times equal the direct path's; the
-   descent and auto times against the search times; K4 timed on the FMC
-   fields;
+   launch counts are the tracer's (auto: one K4 and one K3, and one K2
+   and one K3 for all the rays it retraces), the facade's times equal the
+   direct path's; auto's ray phase beside the descent's; the descent and
+   auto times against the search times; K4 timed on the FMC fields;
 7d. one ``utils/profiling.trace`` each of a warm weld slice and a warm FMC
    slice with the descent tracer: the device's busy share from the
    Chrome trace;
@@ -104,6 +111,12 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --k4`` runs K4 alone in about a minute (K1 solves
+its fields): on the weld's and the FMC's fields and on the slow band,
+score_k 0 and 5, float32, against its twin and timed with its step split,
+and again with every step exact; it prints the card line and one JSON
+object of timings.
 """
 
 from __future__ import annotations
@@ -182,13 +195,29 @@ def check(cond, what):
         raise SmokeFailure(what)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
+    """Print a line; a phase's header ("[n] ...") with the seconds since
+    the script started, so that each phase's cost can be read off."""
+    if msg.startswith("["):
+        msg = f"{msg} (at {time.perf_counter() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock():
+    """The SM clock now and its maximum, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
@@ -1943,14 +1972,16 @@ def phase_fine_timing(inputs, fine):
 # --------------------------------------------------------------------- #
 
 # K4 against its twin on 48 x 56: (trace_rays_descent knobs, fine cells
-# per model cell, whether the fields lie on the refined grid).  The
+# per model cell, whether the fields lie on the refined grid, model).  The
 # facade's descent defaults: step_scale 6, max_cross 16, relax_iters 2,
-# relax_quad True, score_k 0.
+# relax_quad True, score_k 0.  The slow band bends its rays at row 24.
 DESCENT_CASES = {
-    "interp, defaults": (dict(), 9, False),
-    "interp, score_k 5": (dict(score_k=5), 9, False),
-    "grid, defaults": (dict(mode="grid"), 3, True),
-    "grid, score_k 5": (dict(mode="grid", score_k=5), 3, True),
+    "interp, defaults": (dict(), 9, False, "48x56"),
+    "interp, score_k 5": (dict(score_k=5), 9, False, "48x56"),
+    "grid, defaults": (dict(mode="grid"), 3, True, "48x56"),
+    "grid, score_k 5": (dict(mode="grid", score_k=5), 3, True, "48x56"),
+    "slow band, defaults": (dict(), 9, False, "slow band"),
+    "slow band, score_k 5": (dict(score_k=5), 9, False, "slow band"),
 }
 # the FMC example's budgets and march knobs (examples/fmc_rays_torch.py)
 FMC_SOLVE = dict(final_rel_tol=2e-3, final_polish_passes=3, sweep_block=4)
@@ -1991,22 +2022,29 @@ def descent_inputs(model, knobs, s, sx, sy, pairs, dnx):
 
 def descent_vs_twin(args, want, cross, dtype, what):
     """K4 as a bare launch and through the wrapper
-    ``cuda_rays.march_descent`` against the twin's result ``want``, to
-    the march's tolerances (``compare_march``).  Returns the differences
-    by key."""
+    ``cuda_rays.march_descent`` against the twin's result ``want``: equal
+    in every vertex, length, reason and step count, in both types.
+    Returns the differences by key."""
     from alifmm_tpu_torch.ops import cuda_rays
 
     model, mat_flat, spec = args[0], args[1], args[6]
-    p = cuda_rays.prepare_march_descent(*args)
-    p.run()
-    runs = [(f"bare, {p.plan['lanes']} lanes a ray", p.out),
-            ("through the wrapper", cuda_rays.march_descent(*args))]
+    runs = []
+    for shared, fast in ((True, True), (False, True), (True, False)):
+        p = cuda_rays.prepare_march_descent(*args, shared=shared, fast=fast)
+        p.run()
+        where = "shared" if p.plan["tables_smem"] else "device"
+        runs.append((f"bare, tables in {where} memory"
+                     + ("" if fast else ", every step exact"), p.out))
+    runs.append(("through the wrapper", cuda_rays.march_descent(*args)))
     torch.cuda.synchronize()
     vertex, equal = 0.0, 1.0
     for how, got in runs:
         v, e = compare_march(got, want, model, mat_flat, spec.s, cross,
                              dtype, f"K4 {what}, {how}")
         vertex, equal = max(vertex, v), min(equal, e)
+    # K4 follows the twin operation for operation, in both types
+    check(vertex == 0.0 and equal == 1.0,
+          f"K4 {what}: not equal to its twin ray for ray")
     return dict(descent=vertex, descent_unequal=1.0 - equal)
 
 
@@ -2051,15 +2089,15 @@ def check_trace_descent(args, knobs, cross, dtype, what):
                 relax_times_rel=rt)
 
 
-def check_descent(case, dtype, device):
-    """One case of DESCENT_CASES on 48 x 56 (25 rays through 5 fields
-    solved on the card, on the refined grid for the grid cases): K4
-    against descent_plain, then trace_rays_descent.  Returns the largest
-    differences by key."""
-    from alifmm_tpu_torch import rays, solver, weld_data
+def descent_case(case, dtype, device):
+    """The inputs of one case of DESCENT_CASES (25 rays through 5 fields
+    solved on the card, on the refined grid for the grid cases): (args of
+    ``prepare_march_descent``, knobs, crossing budget)."""
+    from alifmm_tpu_torch import solver, weld_data
 
-    knobs, s, fine = DESCENT_CASES[case]
-    model = small_model(dtype, device)
+    knobs, s, fine, model_name = DESCENT_CASES[case]
+    model = (small_model(dtype, device) if model_name == "48x56"
+             else slow_band_model(dtype, device))
     dnx = float(model.dnx)
     sx, sy, pairs = weld_data.transducers(model.shape, dnx, 5, 10)
     scx, scz = weld_data.ray_pairs(sx, sy, pairs, dnx)[:2]
@@ -2067,11 +2105,22 @@ def check_descent(case, dtype, device):
                             s if fine else 1, solver.SolveConfig(**SOLVE_KW))
     mat_flat, tidx, src, rec, spec, cross = descent_inputs(
         model, knobs, s, sx, sy, pairs, dnx)
-    args = (model, mat_flat, ttfs, tidx, src, rec, spec)
+    return (model, mat_flat, ttfs, tidx, src, rec, spec), knobs, cross
+
+
+def check_descent(case, dtype, device):
+    """One case of DESCENT_CASES on 48 x 56: K4 against descent_plain,
+    then trace_rays_descent; in float32 also the profiling build's
+    split.  Returns the largest differences by key."""
+    from alifmm_tpu_torch import rays
+
+    args, knobs, cross = descent_case(case, dtype, device)
     want = rays.descent_plain(*args)
     what = f"48x56 {case} {str(dtype).replace('torch.', '')}"
     errs = descent_vs_twin(args, want, cross, dtype, what)
     merge_worst(errs, check_trace_descent(args, knobs, cross, dtype, what))
+    if dtype == torch.float32:
+        log_profile(descent_profile(args, want))
     return errs
 
 
@@ -2110,11 +2159,54 @@ def descent_bound(fields, mat_flat, model, spec, steps, P):
     return roofline(ops, nbytes)
 
 
+def descent_profile(args, out, fast=True):
+    """K4's clock64 build (float32) on ``args``: it must march as the
+    launch whose outputs are ``out``.  Returns the longest ray's step
+    split by part (shares of its cycles), its cycles a step, and over all
+    rays the shares of the steps and of the window's pieces that ran again
+    exactly (an operand outside the fast paths' range)."""
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    pp = cuda_rays.prepare_march_descent(*args, fast=fast, profile=True)
+    pp.run()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(pp.out[:5], out)),
+          "K4's profiling build marched otherwise")
+    cols = dict(zip(cuda_rays.DESCENT_PROFILE, pp.out[5].double().T))
+    longest = int(torch.argmax(out[4]))
+    parts = cuda_rays.DESCENT_PARTS
+    cyc = torch.stack([cols[k][longest] for k in parts])
+    total = float(cyc.sum())
+    pieces = float(cols["window_pieces"].sum())
+    n_steps = float(out[4].sum())
+    return dict(
+        split={k: float(c) / total for k, c in zip(parts, cyc)},
+        cycles_per_step=total / float(out[4][longest]),
+        exact_step_share=float(cols["exact_steps"].sum()) / n_steps,
+        exact_piece_share=(float(cols["exact_pieces"].sum()) / pieces
+                           if pieces else None))
+
+
+def log_profile(prof, us=None):
+    """One line of descent_profile's result; ``us``: the bare time a step,
+    to give the parts in us."""
+    win = prof["exact_piece_share"]
+    log("    step split of the longest ray (clock64): "
+        + ", ".join(f"{k} {v:.3f}" + ("" if us is None else
+                                      f" ({us * v:.3f} us)")
+                    for k, v in prof["split"].items())
+        + f"; {prof['cycles_per_step']:.0f} cycles a step; run again "
+        f"exactly: steps "
+        f"{prof['exact_step_share']:.4f}, window pieces "
+        + ("-" if win is None else f"{win:.4f}"))
+
+
 def time_descent(args, want, ms_twin, n=10):
     """K4 on ``args`` warm: the bare launch with its outputs allocated
     beforehand and the call through its wrapper (CUDA events over n
     calls), the longest ray's dependent steps and the time a step, beside
-    its bound (from the twin's run ``want``) and the twin's time."""
+    its bound (from the twin's run ``want``) and the twin's time; in
+    float32 also the step split of the profiling build."""
     from alifmm_tpu_torch.ops import cuda_rays
 
     model, mat_flat, fields, spec = args[0], args[1], args[2], args[6]
@@ -2124,14 +2216,24 @@ def time_descent(args, want, ms_twin, n=10):
     steps = p.out[4]
     chain = int(steps.max())
     us = bare * 1e3 / chain
-    log(f"  K4 {bare:.4f} ms bare, {wrapper:.4f} ms through the wrapper, for "
+    warps = cuda_rays.occupancy(p, spec.score_k, model.dtype) * 4
+    clock = sm_clock()
+    log(f"  K4 (SM clock {clock}) {bare:.4f} ms bare, {wrapper:.4f} ms "
+        f"through the wrapper, for "
         f"{args[3].shape[0]} rays (score_k {spec.score_k}, "
-        f"{p.plan['lanes']} lanes a ray, max_steps {spec.max_steps}); the "
-        f"longest ray takes {chain} dependent steps: {us:.3f} us a step; all "
-        f"rays {int(steps.sum())} steps; twin {ms_twin:.1f} ms")
+        f"{p.plan['lanes']} lanes a ray, {p.plan['smem']} B of shared "
+        f"memory a block, {warps} warps resident per SM, max_steps "
+        f"{spec.max_steps}); the longest ray takes {chain} dependent steps: "
+        f"{us:.3f} us a step; all rays {int(steps.sum())} steps; twin "
+        f"{ms_twin:.1f} ms")
     timed = dict(ms=bare, wrapper_ms=wrapper, chain=chain, us_per_step=us,
                  steps=int(steps.sum()), plain_ms=ms_twin,
-                 rays=int(args[3].shape[0]), score_k=spec.score_k)
+                 rays=int(args[3].shape[0]), score_k=spec.score_k,
+                 lanes=p.plan["lanes"], warps_per_sm=warps, sm_clock=clock)
+    if model.dtype == torch.float32:
+        prof = descent_profile(args, p.out)
+        log_profile(prof, us)
+        timed["profile"] = prof
     b, by_what = descent_bound(fields, mat_flat, model, spec, want[4],
                                want[0].shape[1])
     timed.update(bound_ms=b, bound_by=by_what, share=b / bare)
@@ -2228,15 +2330,17 @@ def routed_knobs(tracer):
             tracer, fn, dict(FMC_RAY_OPTS))
 
 
-def expected_launches(tracer, n_chunks):
+def expected_launches(tracer, retraced):
+    """Kernel launches of one trace: auto adds one K2 and one K3 when the
+    certificate flags any ray (``retraced``)."""
+    n = int(bool(retraced))
     return {"search": dict(march=1, relax_times=1, descent=0),
             "descent": dict(march=0, relax_times=1, descent=1),
-            "auto": dict(march=n_chunks, relax_times=1 + n_chunks,
-                         descent=1)}[tracer]
+            "auto": dict(march=n, relax_times=1 + n, descent=1)}[tracer]
 
 
-def check_tracer_counts(counts, tracer, n_chunks, what):
-    want = expected_launches(tracer, n_chunks)
+def check_tracer_counts(counts, tracer, retraced, what):
+    want = expected_launches(tracer, retraced)
     check(counts["sweep_pass"] > 0, f"{what} launched no sweep_pass kernel")
     for name, n in want.items():
         check(counts[name] == n,
@@ -2326,13 +2430,11 @@ def phase_fmc(device):
                            counts=counts)
     # the certificate of the auto tracer, as trace_rays_auto computes it
     tol = routed_knobs("auto").get("tol", 3e-3)
-    chunk = routed_knobs("auto").get("retrace_chunk", 128)
     t_true = rays._sample_ttf(ttfs, src[:, 0], src[:, 1], s, "interp",
                               tidx_d)
     flagged = int((~(times["descent"] <= (1.0 + tol) * t_true)).sum())
-    n_chunks = -(-flagged // chunk)
     for tracer in TRACERS:
-        check_tracer_counts(res[tracer]["counts"], tracer, n_chunks,
+        check_tracer_counts(res[tracer]["counts"], tracer, flagged,
                             f"FMC direct {tracer}")
     above = int((times["auto"] > times["descent"]).sum())
     check(above == 0, f"FMC: {above} auto times above their descent times")
@@ -2347,7 +2449,9 @@ def phase_fmc(device):
             f"difference median {gaps[tracer]['median']:.4e}, max |.| "
             f"{gaps[tracer]['max']:.4e}, min {gaps[tracer]['min']:.4e}")
     log(f"  FMC auto: {flagged} of {n_rays} rays flagged by the certificate "
-        f"(tol {tol}), {n_chunks} retrace chunks of {chunk}")
+        f"(tol {tol}), retraced in one K2 and one K3 launch; auto's ray "
+        f"phase {res['auto']['rays']:.4f} s against the descent's "
+        f"{res['descent']['rays']:.4f} s")
 
     for tracer in TRACERS:
         fm = alifmm_tpu_torch.ALI_FMM(
@@ -2369,7 +2473,7 @@ def phase_fmc(device):
         reset_counts()
         tmat, wall = call()
         counts = read_counts()
-        check_tracer_counts(counts, tracer, n_chunks, f"FMC facade {tracer}")
+        check_tracer_counts(counts, tracer, flagged, f"FMC facade {tracer}")
         traced = np.triu(np.ones((len(sx), len(sx)), bool), k=1)
         check(bool(np.isfinite(tmat).all()) and bool((tmat[traced] > 0).all())
               and not tmat[~traced].any(),
@@ -2398,8 +2502,7 @@ def phase_fmc(device):
         k4[f"score_k {k}"] = descent_at_shape(
             model, ttfs, (sx, sy, pairs, dnx), dict(score_k=k), s,
             torch.float32, worst, f"FMC score_k {k} float32")
-    return dict(tracers=res, gaps=gaps, flagged=flagged, chunks=n_chunks,
-                k4=k4, worst=worst)
+    return dict(tracers=res, gaps=gaps, flagged=flagged, k4=k4, worst=worst)
 
 
 def busy_share(path):
@@ -2706,12 +2809,16 @@ def main():
         "fmc": fmc["k4"],
         "grid_tap": k4_fine,
         "launches_auto": fmc["tracers"]["auto"]["facade_counts"]["descent"],
-        "registers_f32": {k: v[0] for k, v in regs.items()
-                          if k.startswith("descent_kernel<f")},
+        "share": k4_weld["score_k 0"]["share"],
+        "warps_per_sm": k4_weld["score_k 0"]["warps_per_sm"],
+        "registers": {k: v[0] for k, v in regs.items()
+                      if k.startswith("descent_kernel<")},
+        "spill_bytes_f32": max([v[1] for k, v in regs.items()
+                                if k.startswith("descent_kernel<f")] or [0]),
         "spill_bytes_f64": max([v[1] for k, v in regs.items()
                                 if k.startswith("descent_kernel<d")] or [0]),
         "fmc_slice": dict(tracers=fmc["tracers"], gaps=fmc["gaps"],
-                          flagged=fmc["flagged"], chunks=fmc["chunks"]),
+                          flagged=fmc["flagged"]),
         "profiles": profiles,
     })
     print(card, flush=True)
@@ -2722,5 +2829,78 @@ def main():
     return 0
 
 
+def main_k4():
+    """``python3 chip_smoke.py --k4``: K4 alone, in a few minutes.  Builds
+    K1 and K4 (ptxas' report for K4), then on the weld's and the FMC's
+    fields (solved by K1) and on the slow band, score_k 0 and 5, float32:
+    K4 against its twin ray for ray, and timed beside its bound with the
+    step split of its profiling build, and with every step exact.  Prints the card
+    line and one JSON object of the timings."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from alifmm_tpu_torch import grid, rays, solver, weld_data
+    from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(f"[1] device {torch.cuda.get_device_name(0)} ({card}); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    cuda_sweep.build()
+    cuda_rays.build_descent(verbose=True)
+    for name, (n, spill) in ptxas_summary(
+            cuda_rays.DESCENT_BUILD_LOG).items():
+        log(f"    ptxas: {name[:120]}: {n} registers, {spill} bytes of "
+            f"spill")
+    out = {}
+
+    def timed(args, cross, what):
+        ms_twin, want = time_host(lambda: rays.descent_plain(*args))
+        descent_vs_twin(args, want, cross, torch.float32, what)
+        out[what] = time_descent(args, want, ms_twin)
+        # the same launch with every step exact, and each on every 8th
+        # ray alone (fewer than one warp an SM sub-partition)
+        few = [a[::8].contiguous() for a in args[3:6]]
+        for fast in (True, False):
+            kw = dict(fast=fast)
+            p = cuda_rays.prepare_march_descent(*args, **kw)
+            ms = time_events(p.run, 10)
+            pf = cuda_rays.prepare_march_descent(*args[:3], *few, args[6],
+                                                 **kw)
+            us_few = time_events(pf.run, 10) * 1e3 / int(pf.out[4].max())
+            prof = descent_profile(args, want, **kw)
+            key = f"{'fast' if fast else 'exact'} steps"
+            log(f"    {key}: {ms:.4f} ms, every 8th ray alone {us_few:.3f} "
+                f"us a step")
+            log_profile(prof)
+            out[what][key] = dict(ms=ms, us_per_step_few_rays=us_few,
+                                  profile=prof)
+
+    for shape, geometry, budgets in (
+            ("weld", weld_data.workload(0), SOLVE_KW),
+            ("FMC", fmc_geometry(), FMC_SOLVE)):
+        veln, velpn, vel_map, stif, sx, sy, pairs, dnx = geometry
+        model = grid.make_model(veln, velpn, vel_map, stif, None, None, dnx,
+                                dtype=torch.float32, device=device)
+        scx, scz = weld_data.ray_pairs(sx, sy, pairs, dnx)[:2]
+        ttfs = solver.solve_ttf(
+            model, torch.as_tensor(scx).float().to(device),
+            torch.as_tensor(scz).float().to(device), 1,
+            solver.SolveConfig(**budgets))
+        for k in (0, 5):
+            mat_flat, tidx, src, rec, spec, cross = descent_inputs(
+                model, dict(score_k=k), weld_data.SUBGRID, sx, sy, pairs,
+                dnx)
+            timed((model, mat_flat, ttfs, tidx, src, rec, spec), cross,
+                  f"{shape} score_k {k}")
+    for case in DESCENT_CASES:
+        if case.startswith("slow band"):
+            args, _, cross = descent_case(case, torch.float32, device)
+            timed(args, cross, case)
+    print(card, flush=True)
+    print(json.dumps({"k4": out}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_k4() if sys.argv[1:] == ["--k4"] else main())

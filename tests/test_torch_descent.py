@@ -216,12 +216,11 @@ def _flagged(times, t_true, tol):
                         * np.asarray(t_true)))[0]
 
 
-@pytest.mark.parametrize("which", ["some", "none"])
-def test_trace_rays_auto_matches_jax(weld, which):
-    """The certificate flags the same rays in both packages (a ``tol``
-    between two ratios of descent time to first arrival flags about half,
-    one above the largest flags none), and the retraced result is the
-    same: chunks of 4 rays, the last one padded by repetition."""
+def _auto_case(weld, which):
+    """The fields, both packages' arguments, the descent's result and a
+    ``tol`` for the certificate: between two ratios of descent time to
+    first arrival ("some": about half the rays flagged), or above the
+    largest ("none")."""
     fields = _fields(weld["scx"], weld["scz"], 7)
     jargs, targs = _jax_args(fields, weld), _torch_args(fields, weld)
     jd = jrays.trace_rays_descent(weld["jm"], *jargs, S, **DESCENT_KNOBS)
@@ -237,6 +236,17 @@ def test_trace_rays_auto_matches_jax(weld, which):
            else ratio[-1] * 1.01 - 1)
     flagged = _flagged(td[3].numpy(), t_true.numpy(), tol)
     np.testing.assert_array_equal(flagged, _flagged(jd[3], j_true, tol))
+    return jargs, targs, td, tol, flagged
+
+
+@pytest.mark.parametrize("which", ["some", "none"])
+def test_trace_rays_auto_matches_jax(weld, which):
+    """The certificate flags the same rays in both packages (a ``tol``
+    between two ratios of descent time to first arrival flags about half,
+    one above the largest flags none), and the retraced result is the
+    same: JAX in chunks of 4 rays, the last one padded by repetition."""
+    jargs, targs, td, tol, flagged = _auto_case(weld, which)
+    n = len(td[3])
     if which == "some":
         assert 0 < len(flagged) < n and len(flagged) % 4
     else:
@@ -251,6 +261,23 @@ def test_trace_rays_auto_matches_jax(weld, which):
     if which == "none":
         for g, d in zip(got, td):
             assert torch.equal(g, d)
+
+
+@pytest.mark.parametrize("chunk", [2, 128])
+def test_trace_rays_auto_is_independent_of_chunking(weld, chunk):
+    """The port retraces every flagged ray in one call; JAX in chunks of
+    ``retrace_chunk`` (2: many chunks, the last padded; 128: one chunk
+    mostly padding).  Ray for ray the results are the same, and some
+    flagged rays are replaced."""
+    jargs, targs, td, tol, flagged = _auto_case(weld, "some")
+    assert len(flagged) > chunk or chunk > len(td[3])
+    kw = dict(tol=tol, retrace_chunk=chunk, descent_kw=DESCENT_KNOBS,
+              search_kw=SEARCH_KNOBS)
+    want = jrays.trace_rays_auto(weld["jm"], *jargs, S, **kw)
+    got = trays.trace_rays_auto(weld["tm"], *targs, S, **kw)
+    _same_rays(got, want, f"auto, JAX in chunks of {chunk}")
+    changed = np.nonzero(got[3].numpy() != td[3].numpy())[0]
+    assert len(changed) and set(changed) <= set(flagged)
 
 
 def test_split_at_cell_boundaries_matches_jax():

@@ -66,7 +66,9 @@ def test_exact_segment_integrators_match_plain_twins(device, dtype, model):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_descent_matches_plain_twin(device, dtype, case):
     """K4 on 48 x 56 with and without its scored window, on fields of the
-    model grid and of the refined grid, against descent_plain (bare and
+    model grid and of the refined grid and on a model whose slow band
+    bends the rays, against descent_plain ray for ray (bare, with the
+    tables in shared and in device memory and with every step exact, and
     through the wrapper); trace_rays_descent against K3's twin on K4's
     polylines."""
     chip_smoke.check_descent(case, dtype, device)
