@@ -248,10 +248,11 @@ def two_phase(tt0, pass_fn, per_source, rel_tol, max_passes, min_passes,
     return tt, SolveInfo(passes=int(n1[0]), converged=bool(conv[0]))
 
 
-def plain_pass(tt, model, fixed, replace, active):
-    """One plain pass in the ``two_phase`` protocol."""
+def plain_pass(tt, model, fixed, replace, active, graphed=False):
+    """One plain pass in the ``two_phase`` protocol (``graphed``: see
+    ``gs_pass``)."""
     rep = torch.as_tensor(replace, device=tt.device)
-    new = gs_pass(tt, model, fixed, replace=rep)
+    new = gs_pass(tt, model, fixed, replace=rep, graphed=graphed)
     act = torch.as_tensor(active, device=tt.device)[:, None, None]
     new = torch.where(act, new, tt)
     delta, scale = delta_scale(new, tt)

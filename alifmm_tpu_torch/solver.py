@@ -31,7 +31,8 @@ from . import materials as mats
 from .ops import cuda_sweep
 from .ops.stencils import INF
 
-__all__ = ["SolveConfig", "solve_ttf", "coarse_stages", "fine_stage_params"]
+__all__ = ["SolveConfig", "solve_ttf", "solve_one", "coarse_stages",
+           "fine_stage_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +59,40 @@ class SolveConfig:
     use_ali: bool = True
     phase1_use_ali: bool | None = None
     final_polish_fd: bool = True
+
+    @classmethod
+    def accuracy(cls, **overrides) -> "SolveConfig":
+        """Accuracy preset: a tight phase-1 gate, larger pass budgets and a
+        residual-driven final polish (the JAX package's preset, field for
+        field).  ``overrides`` replace preset fields; a field this port
+        leaves out (``multigrid``, ``mg_passes``, ``mg_polish``) raises
+        TypeError, as the dataclass does for any unknown field."""
+        kw = dict(rel_tol=2e-4, patch_max_passes=16, final_max_passes=32,
+                  polish_passes=8, final_rel_tol=2e-4,
+                  final_polish_passes=8, final_max_polish=32)
+        kw.update(overrides)
+        return cls(**kw)
+
+    @classmethod
+    def for_mode(cls, mode: str = "qp", **overrides) -> "SolveConfig":
+        """Budget preset per wave mode (any case): ``qp``/``p``/``l`` the
+        defaults; the shear modes ``qsv``/``qsh``/``sv``/``sh``/``s``/``t``
+        24 patch passes, 96 final phase-1 passes, 8 polish passes and a
+        residual-driven final polish of up to 96, since shear fields settle
+        far slower under the line sweeps.  Any other mode raises
+        ValueError.  ``overrides`` as in ``accuracy``.  Check the
+        converged flag of ``solve_ttf(..., return_info=True)``."""
+        m = mode.lower()
+        if m in ("qp", "p", "l"):
+            kw = {}
+        elif m in ("qsv", "qsh", "sv", "sh", "s", "t"):
+            kw = dict(patch_max_passes=24, final_max_passes=96,
+                      polish_passes=8, final_polish_passes=8,
+                      final_max_polish=96)
+        else:
+            raise ValueError(f"unknown wave mode {mode!r}")
+        kw.update(overrides)
+        return cls(**kw)
 
 
 def _window_origin(center, half, n):
@@ -261,6 +296,28 @@ def _stage_final(model, prev_tt, prev_bz, prev_bx, cfg):
         inner=cfg.sweep_inner, use_ali=cfg.use_ali,
         phase1_use_ali=cfg.phase1_use_ali, polish_use_fd=cfg.final_polish_fd,
     )
+
+
+def solve_one(model: gridlib.Model, scx, scz, stages, seed_side: int,
+              seed_sign: float, cfg: SolveConfig = SolveConfig()):
+    """Travel-time field (Z, X) of one source at (scx, scz) on ``model``'s
+    grid: ``stages`` are (window half size, refinement factor) pairs,
+    innermost first, the factors stepping down by 3 to 3, then the final
+    full-grid stage.
+
+    The JAX package's single-source driver, which differs from the batched
+    ``solve_ttf`` in what it reads of ``cfg``: its final stage runs the
+    fixed-count polish (``final_max_polish`` is ignored) with the FD
+    fallback (``final_polish_fd`` is ignored), and its sweeps are strictly
+    ordered (``sweep_inner`` and ``patch_inner`` are ignored); the stages
+    come from the caller (``stage3_half`` is ignored)."""
+    cfg = dataclasses.replace(cfg, final_max_polish=None,
+                              final_polish_fd=True, sweep_inner=0,
+                              patch_inner=0)
+    scx = torch.as_tensor(scx, device=model.device).to(model.dtype)
+    scz = torch.as_tensor(scz, device=model.device).to(model.dtype)
+    return _staged_solve(model, scx.reshape(1), scz.reshape(1), stages,
+                         seed_side, seed_sign, cfg)[0]
 
 
 def _staged_solve(base, scx, scz, stages, seed_side, seed_sign, cfg,

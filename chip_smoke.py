@@ -45,8 +45,12 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    ``trace_rays_descent`` (one K4 and one K3 launch) against K3's twin on
    K4's polylines; in float32 the share of steps K4's profiling build ran
    again exactly (``check_descent``);
-5. analytic check at full size: homogeneous isotropic 424 x 500, one
-   interior source, relative error against r / v;
+5. analytic checks: homogeneous isotropic 424 x 500, one interior source,
+   relative error against r / v with the default budget and with
+   ``SolveConfig.accuracy()``; then tests/test_analytic_truth.py's
+   accuracy-preset cases at their own sizes in float64 (isotropic v =
+   3000 and homogeneous qP at veln 30, N = 41 and 81) within that file's
+   bounds;
 5b. K1 against its plain twin at the fine path's patch shapes (four
    weld sources, 397 x 397 at 9x and 295 x 295 at 3x, float64 and
    float32, one min pass at both lane counts);
@@ -107,7 +111,27 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    the fine fields against its twin (float32) and timed beside its bound
    and the twin; K3 with exact materials likewise;
 10b. K4 in grid mode on the fine fields (score_k 0 and 5): against its
-   twin in float32 (timed) and float64.
+   twin in float32 (timed) and float64;
+11. shear modes (qSV tables from ``materials.generate_mode_curves``, an
+   interpolated table column: K1's column mode 2): (11a) K1 against its
+   graphed twin, max abs 0, float64 and float32, a min and a replace pass
+   at the AUTO launch shapes on ``QSV_PASS_CASES`` (48 x 56 with a qSV
+   block, the qSV weld's patches at 109 x 109 and 79 x 79), and the
+   fixpoint under ``for_mode("qsv")``'s final-stage budget on 48 x 56 in
+   float64 (equal pass counts); (11b) tests/test_qsv_mode.py's
+   homogeneous 33 x 37 cases in float64 within that file's bounds; (11c)
+   the qSV weld slice (the seeded weld with a qSV column in the weld and a
+   3240 m/s isotropic parent, 31 fields, 961 rays, float32,
+   ``for_mode("qsv")``): directly, then through ``ALI_FMM`` with the
+   weld's knobs and with the auto tracer's defaults, each a warm-up run
+   and a timed one with every count set to 0 just before it; converged
+   in fewer than 96 passes, the facade's times equal to the direct
+   path's, every qSV ray time 1.5-2.8 times its qP time of phase 6, the
+   plane search's rays arrived or finished at the grid's edge near their
+   receiver, every auto ray arrived unless neither the descent nor the
+   search lands it (as in the JAX package); K4 against its twin on the qSV
+   fields; (11d) K1 timed warm at the qSV weld's final shape beside the
+   qP weld's time and its bound.
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``.
@@ -139,7 +163,14 @@ TOL_SOLVE = {torch.float64: 1e-10, torch.float32: 1e-4}
 # (8 square stencils ~31, 8 triangular ~35, 8 FD quadrants ~30, 8 knight
 # pairs ~20, then atan, two floor-mods and the phase velocity), and the
 # H100's non-tensor fp32 peak and memory rate (SXM data sheet, 700 W).
+# The phase velocity by its path (phase_velocity in csrc/sweep.cu): the
+# closed-form Christoffel eigenvalue (velpn 0 with stiffness: cos and sin
+# at about 20 each, 14 multiplies and adds, two square roots and a divide
+# at about 10 each) about 85; the interpolated table column (column mode
+# 2: a floor-mod about 10, a floor, clamps and two indices, two table
+# loads, two multiply-adds and the scale) about 30; a constant column 3.
 OPS_PER_UPDATE = 1000
+OPS_PHASE_EIGEN, OPS_PHASE_LOOKUP, OPS_PHASE_CONSTANT = 85, 30, 3
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # tests/test_analytic_truth.py: isotropic envelope bounds (max, mean)
 ANALYTIC_MAX, ANALYTIC_MEAN = 2.4e-2, 1.5e-2
@@ -273,14 +304,16 @@ def seeded(shape, B, dtype, device):
     return tt, fixed
 
 
-def weld_patches(half, factor, dtype, device):
-    """Per-source patch models of the weld (three sources) with their
-    analytic seeds: half 2 at 27x gives 109 x 109, half 13 at 3x 79 x 79."""
+def weld_patches(half, factor, dtype, device, model=None):
+    """Per-source patch models of the weld (three sources; ``model``: the
+    seeded qP weld by default) with their analytic seeds: half 2 at 27x
+    gives 109 x 109, half 13 at 3x 79 x 79."""
     from alifmm_tpu_torch import grid, solver, weld_data
 
-    veln, velpn, vel_map, stif = weld_data.weld_model_arrays(0)
-    model = grid.make_model(veln, velpn, vel_map, stif, None, None,
-                            weld_data.DNX, dtype=dtype, device=device)
+    if model is None:
+        veln, velpn, vel_map, stif = weld_data.weld_model_arrays(0)
+        model = grid.make_model(veln, velpn, vel_map, stif, None, None,
+                                weld_data.DNX, dtype=dtype, device=device)
     scx = torch.tensor([100.0, 250.0, 400.0], dtype=dtype,
                        device=device) * weld_data.DNX
     scz = torch.tensor([423.0, 423.0, 200.0], dtype=dtype,
@@ -398,6 +431,23 @@ def check_case(name, dtype, device):
     out, e2 = check_pass(model, mid, fixed, True, dtype,
                          f"{name} replace {dname}", configs)
     check_graphed(model, mid, fixed, True, out, f"{name} replace {dname}")
+    return max(e1, e2)
+
+
+def check_qsv_case(name, dtype, device):
+    """A case of QSV_PASS_CASES: a min pass, then a replace pass on its
+    result, K1 at the AUTO launch shapes against the graphed twin (which
+    phase 3 holds bit for bit to the eager one), max abs 0; returns the
+    largest absolute difference."""
+    model, tt, fixed = QSV_PASS_CASES[name](dtype, device)
+    dname = str(dtype).replace("torch.", "")
+    mid, e1 = check_pass(model, tt, fixed, False, dtype,
+                         f"{name} min {dname}", graphed=True)
+    _, e2 = check_pass(model, mid, fixed, True, dtype,
+                       f"{name} replace {dname}", graphed=True)
+    check(e1 == 0.0 and e2 == 0.0,
+          f"{name} {dname}: K1's interpolated lookup differs from its twin "
+          f"(max abs {max(e1, e2):.3e})")
     return max(e1, e2)
 
 
@@ -747,6 +797,9 @@ def phase_rays_vs_plain(device):
 
 
 def phase_analytic(device):
+    """(5): the isotropic 424 x 500 field against r / v with the default
+    budget and with ``SolveConfig.accuracy()``; then
+    tests/test_analytic_truth.py's accuracy-preset cases."""
     from alifmm_tpu_torch import grid, solver
 
     Z, X, dnx, v = 424, 500, 2e-4, 5790.0
@@ -754,20 +807,82 @@ def phase_analytic(device):
                             v * np.ones((Z, X)), None, None, None, dnx,
                             dtype=torch.float32, device=device)
     sz, sx = 212, 250
-    tt, info = solver.solve_ttf(model, torch.tensor([sx * dnx]),
-                                torch.tensor([sz * dnx]), 1,
-                                solver.SolveConfig(), return_info=True)
-    got = tt[0].double().cpu().numpy()
     zz, xx = np.meshgrid(np.arange(Z), np.arange(X), indexing="ij")
     want = dnx * np.hypot(zz - sz, xx - sx) / v
     mask = want > 0
-    rel = np.abs(got - want)[mask] / want[mask]
-    log(f"  isotropic 424x500: rel err max {rel.max():.4e} mean "
-        f"{rel.mean():.4e} (bounds {ANALYTIC_MAX}, {ANALYTIC_MEAN}); final "
-        f"passes {info.passes} converged {info.converged}")
-    check(np.isfinite(got).all(), "analytic field not finite")
-    check(rel.max() < ANALYTIC_MAX and rel.mean() < ANALYTIC_MEAN,
-          "analytic error out of bounds")
+    out = {}
+    for preset, cfg in (("default", solver.SolveConfig()),
+                        ("accuracy", solver.SolveConfig.accuracy())):
+        t0 = time.perf_counter()
+        tt, info = solver.solve_ttf(model, torch.tensor([sx * dnx]),
+                                    torch.tensor([sz * dnx]), 1, cfg,
+                                    return_info=True)
+        got = tt[0].double().cpu().numpy()
+        sec = time.perf_counter() - t0
+        rel = np.abs(got - want)[mask] / want[mask]
+        log(f"  isotropic 424x500, {preset} budget: rel err max "
+            f"{rel.max():.4e} mean {rel.mean():.4e} (bounds {ANALYTIC_MAX}, "
+            f"{ANALYTIC_MEAN}); final passes {info.passes} converged "
+            f"{info.converged}; {sec:.3f} s")
+        check(np.isfinite(got).all(), "analytic field not finite")
+        check(rel.max() < ANALYTIC_MAX and rel.mean() < ANALYTIC_MEAN,
+              f"analytic error out of bounds ({preset} budget)")
+        out[preset] = dict(max=float(rel.max()), mean=float(rel.mean()),
+                           passes=info.passes, converged=info.converged)
+    out["accuracy_cases"] = accuracy_cases(device)
+    return out
+
+
+def accuracy_cases(device):
+    """tests/test_analytic_truth.py's accuracy-preset cases on the card in
+    float64 at their own sizes: homogeneous N x N (dnx 1e-3), one source
+    in the centre, against t = d / v_group(veln - ray angle); isotropic
+    v = 3000 and qP at veln 30 (the austenite of that file), N = 41 and
+    81."""
+    from alifmm_tpu_torch import grid, materials, solver
+
+    dnx = 1e-3
+    ang = np.arange(361.0)
+    iso = np.stack([ang, np.ones(361)], 1)
+    c = (263e9, 145e9, 216e9, 129e9, 7800)
+    aniso = (np.stack([ang, materials.generate_group_vel_curve(*c)], 1),
+             np.stack([ang, materials.generate_phase_vel_curve(*c)], 1))
+    out = {}
+    for name, veln0, g, p, vel, (b_max, b_mean) in (
+            ("isotropic v=3000", 0.0, iso, iso, 3000.0, ACCURACY_ISO),
+            ("qP veln=30", 30.0, *aniso, 1.0, ACCURACY_QP)):
+        for N in (41, 81):
+            model = grid.make_model(
+                np.full((N, N), veln0), np.ones((N, N), dtype=int),
+                vel * np.ones((N, N)), None, g, p, dnx, dtype=torch.float64,
+                device=device)
+            sz = sx = N // 2
+            tt, info = solver.solve_ttf(
+                model, np.array([sx * dnx]), np.array([sz * dnx]), 1,
+                solver.SolveConfig.accuracy(), return_info=True)
+            got = tt[0].cpu().numpy()
+            zz, xx = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
+            dz, dx = zz - sz, xx - sx
+            a = np.where(dx == 0, 90.0, np.degrees(
+                np.arctan(dz / np.where(dx == 0, 1, dx))))
+            eff = np.mod(veln0 - a, 180.0)
+            lo = np.floor(eff).astype(int)
+            fr = eff - lo
+            v = g[lo, 1] * (1 - fr) + g[np.minimum(lo + 1, 360), 1] * fr
+            want = dnx * np.hypot(dz, dx) / (v * vel)
+            mask = want > 0
+            rel = np.abs(got - want)[mask] / want[mask]
+            log(f"  accuracy preset, {name}, N={N}: rel err max "
+                f"{rel.max():.4e} mean {rel.mean():.4e} (bounds {b_max}, "
+                f"{b_mean}); final passes {info.passes} converged "
+                f"{info.converged}")
+            check(np.isfinite(got).all()
+                  and rel.max() < b_max and rel.mean() < b_mean,
+                  f"accuracy preset {name} N={N}: error out of bounds")
+            out[f"{name}, N={N}"] = dict(max=float(rel.max()),
+                                         mean=float(rel.mean()),
+                                         passes=info.passes)
+    return out
 
 
 def weld_inputs(device):
@@ -788,11 +903,13 @@ def weld_inputs(device):
             dev(tidx, torch.int64))
 
 
-def run_slice(inputs, progress=None):
+def run_slice(inputs, progress=None, cfg=None):
+    """solve_ttf, then trace_rays(mode="interp") with the weld's knobs
+    (``cfg``: the weld's budgets by default)."""
     from alifmm_tpu_torch import rays, solver, weld_data
 
     model, scx, scz, src_xy, rec_xy, tidx = inputs
-    cfg = solver.SolveConfig(**SOLVE_KW)
+    cfg = solver.SolveConfig(**SOLVE_KW) if cfg is None else cfg
     t0 = time.perf_counter()
     ttfs, info = solver.solve_ttf(model, scx, scz, 1, cfg, progress=progress,
                                   return_info=True)
@@ -1304,13 +1421,14 @@ def check_default_march(model, ttfs, worst, geometry):
                 relax_times=with_bound(k3, bounds["relax_times"]))
 
 
-def stage_inputs(inputs):
-    """Each stage's K1 input in the weld solve, as solver._stage_first,
-    _stage_next and _stage_final build them: (name, model, field, fixed)."""
+def stage_inputs(inputs, cfg=None):
+    """Each stage's K1 input in the weld solve (``cfg``: the weld's budgets
+    by default), as solver._stage_first, _stage_next and _stage_final build
+    them: (name, model, field, fixed)."""
     from alifmm_tpu_torch import solver
 
     model, scx, scz = inputs[:3]
-    cfg = solver.SolveConfig(**SOLVE_KW)
+    cfg = solver.SolveConfig(**SOLVE_KW) if cfg is None else cfg
     isz, isx = solver._source_cells(model, scx, scz)
     out = []
     tt = bz = bx = None
@@ -1337,14 +1455,32 @@ def stage_inputs(inputs):
     return out
 
 
+def update_ops(packed):
+    """Operations of one point's update, (Bm, Z, X), by the path its phase
+    velocity takes: OPS_PER_UPDATE with the Christoffel eigenvalue, that
+    less the eigenvalue plus the lookup for an interpolated table column,
+    or plus 3 for a constant one."""
+    velpn = packed.planes[:, 1].long()
+    M = packed.col_mode.numel()
+    mode = packed.col_mode.long()[velpn.clamp(0, M - 1)]
+    mode = torch.where((velpn >= 0) & (velpn < M), mode, 0)
+    base = OPS_PER_UPDATE - OPS_PHASE_EIGEN
+    ops = torch.where(mode == 2, base + OPS_PHASE_LOOKUP,
+                      base + OPS_PHASE_CONSTANT)
+    if packed.has_stif:
+        ops = torch.where(velpn == 0, OPS_PER_UPDATE, ops)
+    return ops
+
+
 def bound_ms(tt, fixed, packed):
     """The least time one pass could take on an H100 (SXM data sheet, 700
     W): the larger of its fp32 operations over 67 TFLOP/s and its bytes
     over 3.35 TB/s.  Operations: 4 sweeps x the points that are not fixed
-    x OPS_PER_UPDATE; bytes: the field read and written once, the fixed
-    mask and the 12 material planes read once."""
-    n_upd = 4 * int((~fixed).sum())
-    ops = n_upd * OPS_PER_UPDATE
+    x each point's ``update_ops``; bytes: the field read and written once,
+    the fixed mask and the 12 material planes read once."""
+    per = update_ops(packed)
+    free = (~fixed).sum(0, keepdim=True) if per.shape[0] == 1 else ~fixed
+    ops = 4 * int((per * free).sum())
     item = tt.element_size()
     nbytes = (2 * tt.numel() * item + fixed.numel()
               + packed.planes.numel() * item)
@@ -2582,6 +2718,473 @@ def phase_profiles(inputs, device):
     return out
 
 
+# --------------------------------------------------------------------- #
+# Shear modes: qSV tables, K1's interpolated table lookup, the qSV weld
+# --------------------------------------------------------------------- #
+
+# The weld's one stiffness row (bench_data/weld_stif_den.npy, MPa) in Pa,
+# and the parent metal's shear speed, a mild steel's (weld_data's qP speed
+# there is 5790 m/s)
+QSV_STIFF = (263e9, 148e9, 216e9, 129e9, 8100.0)
+PARENT_SHEAR = 3240.0
+# tests/test_qsv_mode.py's austenite and its bounds on homogeneous 33 x 37
+# media: mean and max, at >= 6 and >= 4 degrees from a wavefront corner,
+# the earliest arrival, the point asymmetry
+QSV_HOMOG_STIFF = (263e9, 145e9, 216e9, 129e9, 7800.0)
+QSV_MEAN, QSV_MAX, QSV_SMOOTH, QSV_NEAR = 1.2e-2, 9.5e-2, 1.2e-2, 3.2e-2
+QSV_EARLIEST, QSV_ASYM = -2e-2, 1.5e-2
+# each qSV ray time against the same pair's qP time (phase 6): every shear
+# speed is at most 3240 m/s and every qP speed at least 5164 m/s (a first
+# arrival at least 1.59x later), and 6329 / 2358 = 2.68
+QSV_OVER_QP = (1.5, 2.8)
+# tests/test_analytic_truth.py's accuracy-preset bounds (max, mean)
+ACCURACY_ISO = (2.4e-2, 1.5e-2)
+ACCURACY_QP = (4.5e-2, 1.6e-2)
+
+
+def qsv_tables(stiff=QSV_STIFF):
+    """(group, phase) tables of the qSV models: column 0 the angle, column
+    1 ones (the isotropic parent metal, scaled by vel_map), column 2 the
+    first-arrival qSV pair of ``materials.generate_mode_curves``."""
+    from alifmm_tpu_torch import materials
+
+    g, p = materials.generate_mode_curves(*stiff, mode="qSV")
+    ang, one = np.arange(361.0), np.ones(361)
+    return np.stack([ang, one, g], 1), np.stack([ang, one, p], 1)
+
+
+def qsv_weld_arrays():
+    """(veln, velpn, vel_map) of the qSV weld: weld_data's seeded layout and
+    orientations; in the weld velpn 2 (the qSV column) and vel_map 1, in
+    the parent metal velpn 1 and vel_map PARENT_SHEAR; no stiffness."""
+    from alifmm_tpu_torch import weld_data
+
+    veln, velpn, _, _ = weld_data.weld_model_arrays(0)
+    weld = velpn == 0
+    return veln, np.where(weld, 2, 1), np.where(weld, 1.0, PARENT_SHEAR)
+
+
+def qsv_weld_model(dtype, device):
+    from alifmm_tpu_torch import grid, weld_data
+
+    g, p = qsv_tables()
+    return grid.make_model(*qsv_weld_arrays(), None, g, p, weld_data.DNX,
+                           dtype=dtype, device=device)
+
+
+def qsv_random_model(Z, X, dtype, device, seed=0):
+    """random_model's layout with its stiffness block a qSV table column
+    (velpn 2) and the rest the isotropic column at PARENT_SHEAR."""
+    from alifmm_tpu_torch import grid
+
+    rng = np.random.default_rng(seed)
+    veln = np.round(rng.uniform(0, 180, (Z, X)))
+    velpn = np.ones((Z, X), dtype=int)
+    velpn[Z // 4: 3 * Z // 4, 2 * X // 7: 5 * X // 7] = 2
+    vel_map = np.where(velpn == 1, PARENT_SHEAR, 1.0)
+    g, p = qsv_tables()
+    return grid.make_model(veln, velpn, vel_map, None, g, p, 2e-4,
+                           dtype=dtype, device=device)
+
+
+def _qsv_seeded(dtype, device):
+    model = qsv_random_model(48, 56, dtype, device)
+    return (model, *seeded(model.shape, 3, dtype, device))
+
+
+# K1's interpolated lookup (column mode 2) against its twin, at the AUTO
+# launch shapes
+QSV_PASS_CASES = {
+    "qSV 48x56": _qsv_seeded,
+    "qSV weld patches 109x109": lambda dt, dev: weld_patches(
+        2, 27, dt, dev, qsv_weld_model(dt, dev)),
+    "qSV weld patches 79x79": lambda dt, dev: weld_patches(
+        13, 3, dt, dev, qsv_weld_model(dt, dev)),
+}
+
+
+def check_qsv_fixpoint(dtype, device):
+    """The two-phase fixpoint under for_mode("qsv")'s final-stage budget
+    (96 phase-1 passes, 8 to 96 polish passes) on qSV 48 x 56 through K1,
+    against the same loop over the graphed twin; in float64 the pass
+    counts must be equal.  Returns the largest absolute difference."""
+    from alifmm_tpu_torch import solver
+    from alifmm_tpu_torch.ops import cuda_sweep, sweep
+
+    model = qsv_random_model(48, 56, dtype, device)
+    tt, fixed = seeded(model.shape, 3, dtype, device)
+    cfg = solver.SolveConfig.for_mode("qsv")
+    kw = dict(rel_tol=cfg.rel_tol, max_passes=cfg.final_max_passes,
+              min_passes=2, polish_passes=cfg.final_polish_passes,
+              max_polish_passes=cfg.final_max_polish)
+    got, info_k = cuda_sweep.solve_fixpoint(tt, model, fixed, **kw)
+
+    def graphed(t, rep, act):
+        return sweep.plain_pass(t, model, fixed, rep, act, graphed=True)
+
+    want, info_p = sweep.two_phase(tt, graphed, False, **kw)
+    name = str(dtype).replace("torch.", "")
+    abs_e, rel_e = rel_err(got, want)
+    log(f"  qSV 48x56 solve_fixpoint (for_mode('qsv')) {name}: max abs "
+        f"{abs_e:.3e} max rel {rel_e:.3e} (tolerance "
+        f"{TOL_SOLVE[dtype]:.0e}); passes kernel {info_k.passes} "
+        f"(converged {info_k.converged}), graphed twin {info_p.passes}")
+    check(rel_e <= TOL_SOLVE[dtype], f"qSV solve_fixpoint {name} differs")
+    if dtype == torch.float64:
+        check(info_k == info_p,
+              "qSV solve_fixpoint float64 pass counts differ")
+    return abs_e
+
+
+def phase_qsv_kernel(device):
+    """(11a): QSV_PASS_CASES in float64 and float32, the qSV fixpoint in
+    float64 (where the pass counts must agree)."""
+    worst = 0.0
+    for dtype in (torch.float64, torch.float32):
+        for name in QSV_PASS_CASES:
+            worst = max(worst, check_qsv_case(name, dtype, device))
+    return max(worst, check_qsv_fixpoint(torch.float64, device))
+
+
+def phase_qsv_homogeneous(device):
+    """(11b): tests/test_qsv_mode.py's homogeneous 33 x 37 cases on the
+    card in float64, veln 140 and 0, with the full stage schedule and
+    for_mode("qsv"), held to that file's bounds against the hull arrival
+    t = d / v_hull(veln - ray angle) (its qSV tables as column 2 of
+    ``qsv_tables``)."""
+    from alifmm_tpu_torch import grid, materials, solver
+
+    Z, X, dnx = 33, 37, 5e-4
+    gtab, ptab = qsv_tables(QSV_HOMOG_STIFF)
+    g = gtab[:, 2]
+    corners = np.unique(np.mod(materials.wavefront_corner_angles(
+        *QSV_HOMOG_STIFF, mode="qSV"), 180.0))
+    check(len(corners) > 0, "qSV: no wavefront corners")
+    sz, sx = 16, 18
+    zz, xx = np.meshgrid(np.arange(Z), np.arange(X), indexing="ij")
+    dz, dx = zz - sz, xx - sx
+    ang = np.where(dx == 0, 90.0, np.degrees(
+        np.arctan(dz / np.where(dx == 0, 1, dx))))
+    out = {}
+    for veln0 in (140.0, 0.0):
+        model = grid.make_model(
+            veln0 * np.ones((Z, X)), np.full((Z, X), 2), np.ones((Z, X)),
+            None, gtab, ptab, dnx, dtype=torch.float64, device=device)
+        tt, info = solver.solve_ttf(
+            model, np.array([sx * dnx]), np.array([sz * dnx]), 1,
+            solver.SolveConfig.for_mode("qsv"), return_info=True)
+        got = tt[0].cpu().numpy()
+        eff = np.mod(veln0 - ang, 180.0)
+        lo = np.floor(eff).astype(int)
+        fr = eff - lo
+        vh = g[lo] * (1 - fr) + g[np.minimum(lo + 1, 360)] * fr
+        want = dnx * np.hypot(dz, dx) / vh
+        mask = want > 0
+        safe = np.where(mask, want, 1.0)
+        relf = np.abs(got - want) / safe
+        rel = relf[mask]
+        early = ((got - want) / safe)[mask].min()
+        asym = (np.abs(got - got[::-1, ::-1]) / safe)[mask].max()
+        cd = np.min(np.stack([
+            np.minimum(np.mod(eff - c, 180.0), 180.0 - np.mod(eff - c, 180.0))
+            for c in corners]), axis=0)
+        smooth = relf[mask & (cd >= 6.0)].max()
+        near = relf[mask & (cd >= 4.0)].max()
+        big = mask & (relf > QSV_NEAR)
+        r = dict(mean=float(rel.mean()), max=float(rel.max()),
+                 smooth=float(smooth), near=float(near), earliest=float(early),
+                 asymmetry=float(asym), passes=info.passes,
+                 converged=info.converged)
+        log(f"  qSV homogeneous 33x37, veln {veln0:g}: rel err mean "
+            f"{r['mean']:.4e} max {r['max']:.4e}; >= 6 deg from a corner "
+            f"{smooth:.4e}, >= 4 deg {near:.4e}; earliest {early:.4e}; "
+            f"asymmetry {asym:.4e}; final passes {info.passes} converged "
+            f"{info.converged}")
+        check(r["mean"] < QSV_MEAN and r["max"] < QSV_MAX
+              and smooth < QSV_SMOOTH and near < QSV_NEAR
+              and bool(np.all(cd[big] < 4.0)) and early > QSV_EARLIEST
+              and asym < QSV_ASYM,
+              f"qSV homogeneous veln {veln0:g}: out of test_qsv_mode's "
+              f"bounds")
+        check(info.converged and info.passes < 96,
+              f"qSV homogeneous veln {veln0:g}: not converged in 96 passes")
+        out[f"veln {veln0:g}"] = r
+    return out
+
+
+def qsv_search_ends(out, rec_xy, what):
+    """How the plane search's rays end on the qSV weld: every time finite
+    and positive, and every ray arrived within the step budget or finished
+    early because its next plane left the grid (reason 1: the reference's
+    rule, Anis_TTF_rays.py:3172, :3294; the receiver is appended) with its
+    last marched vertex within two steps of its receiver.  The JAX package
+    finishes ray 262 (top transducer 8 to bottom transducer 14) so, one
+    step and a half from its receiver on the bottom edge, at the same
+    vertices (PERF.md).  Returns the counts and the early rays."""
+    from alifmm_tpu_torch import weld_data
+
+    bx, by, lengths, times, reason = out
+    arrived = (reason == 0) & (lengths - 2 < RAY_OPTS["max_steps"])
+    ok_t = torch.isfinite(times) & (times > 0)
+    early = torch.nonzero(~arrived).flatten()
+    last = lengths[early] - 2
+    gap = torch.hypot(bx[early, last] - rec_xy[early, 0],
+                      by[early, last] - rec_xy[early, 1])
+    step = RAY_OPTS["step_scale"] * weld_data.SUBGRID
+    rays = [dict(ray=int(r), reason=int(reason[r]), vertices=int(lengths[r]),
+                 steps_to_receiver=float(g) / step)
+            for r, g in zip(early.tolist(), gap.tolist())]
+    log(f"  {what}: {int(arrived.sum())} of {len(times)} rays arrived within "
+        f"the step budget; finished early: {rays}; finite positive times "
+        f"{int(ok_t.sum())}")
+    check(bool(ok_t.all()), f"{what}: {int((~ok_t).sum())} times not "
+          f"finite and positive")
+    check(all(r["reason"] == 1 and r["steps_to_receiver"] < 2.0
+              for r in rays),
+          f"{what}: rays that neither arrived nor finished at the grid's "
+          f"edge near their receiver: {rays}")
+    return dict(arrived=int(arrived.sum()), early=rays)
+
+
+def qsv_auto_arrival(model, ttfs, inputs, what):
+    """The auto tracer on the qSV fields with its defaults (the facade's
+    ``ray_opts={"tracer": "auto"}``), directly, beside the descent and the
+    plane search with theirs: a ray auto kept is the descent's, a retraced
+    one the search's (the same march on the same inputs); it arrived if
+    that tracer's ray ended for reason 0 within its step budget.  Every
+    ray must arrive unless neither tracer lands it: on this weld the JAX
+    package's descent runs out of steps and its search truncates (reason
+    2) on rays 351, 502, 504 and 812, and auto takes the search's rays
+    (PERF.md).  No auto time may be above its descent time.  Returns
+    auto's times and the counts."""
+    from alifmm_tpu_torch import rays, weld_data
+
+    s = weld_data.SUBGRID
+    tidx, src, rec = inputs[5], inputs[3], inputs[4]
+    args = (model, ttfs, tidx, src, rec, s)
+    d = rays.trace_rays_descent(*args, mode="interp", return_reason=True)
+    sr = rays.trace_rays(*args, mode="interp", return_reason=True)
+    a = rays.trace_rays_auto(*args, mode="interp")
+    Z, X = model.shape
+    d_budget = rays.descent_spec(model, s, max_steps=None, step_scale=6.0,
+                                 score_k=0, score_stride=1.0,
+                                 mode="interp").max_steps
+    s_budget = -(-5 * (Z + X) // 1)
+    ok_d = (d[4] == 0) & (d[2] - 2 < d_budget)
+    ok_s = (sr[4] == 0) & (sr[2] - 2 < s_budget)
+    kept = a[3] == d[3]
+    same = torch.where(kept, a[2] == d[2], (a[2] == sr[2]) & (a[3] == sr[3]))
+    check(bool(same.all()), f"{what}: {int((~same).sum())} rays are neither "
+          f"the descent's nor the search's")
+    ok = torch.where(kept, ok_d, ok_s)
+    fin = torch.isfinite(a[3]) & (a[3] > 0)
+    lost = torch.nonzero(~ok).flatten().tolist()
+    res = dict(arrived=int(ok.sum()), retraced_taken=int((~kept).sum()),
+               descent_arrived=int(ok_d.sum()), search_arrived=int(ok_s.sum()),
+               above_descent=int((a[3] > d[3]).sum()),
+               not_arrived=[dict(ray=r, descent_reason=int(d[4][r]),
+                                 descent_vertices=int(d[2][r]),
+                                 search_reason=int(sr[4][r]),
+                                 search_vertices=int(sr[2][r]))
+                            for r in lost])
+    log(f"  {what}: {res['arrived']} of {len(ok)} rays arrive "
+        f"({res['retraced_taken']} of them the plane search's); the descent "
+        f"alone {res['descent_arrived']} (budget {d_budget} steps), the "
+        f"search alone {res['search_arrived']}; finite positive times "
+        f"{int(fin.sum())}; auto times above the descent's "
+        f"{res['above_descent']}; not arrived: {res['not_arrived']}")
+    neither = ~ok_d & ~ok_s
+    check(bool((ok | neither).all()),
+          f"{what}: rays that one tracer lands and auto does not: "
+          f"{torch.nonzero(~ok & ~neither).flatten().tolist()}")
+    check(bool(fin.all()) and res["above_descent"] == 0,
+          f"{what}: {int((~fin).sum())} times not finite and positive, "
+          f"{res['above_descent']} above the descent's")
+    return a[3], res
+
+
+QSV_RAYS_FILE = os.path.join("smoke_out", "qsv_rays_not_arrived.npz")
+
+
+def save_not_arrived(ttfs, q_inputs, out, early, auto_times, lost):
+    """Write the qSV rays that did not arrive (the plane search's ``early``
+    rays with the weld's knobs, auto's ``lost`` ones) with their receiver
+    fields to QSV_RAYS_FILE, for tests/qsv_ray_records.py, which traces
+    them with the JAX package."""
+    tidx, src, rec = q_inputs[5], q_inputs[3], q_inputs[4]
+    s_rays = np.array([r["ray"] for r in early], np.int64)
+    a_rays = np.array([r["ray"] for r in lost], np.int64)
+    both = np.union1d(s_rays, a_rays)
+    if not len(both):
+        return
+    ti = tidx.cpu().numpy()[both]
+    ids = np.unique(ti)
+
+    def host(t, idx):
+        return t.cpu().numpy()[idx]
+
+    os.makedirs(os.path.dirname(QSV_RAYS_FILE), exist_ok=True)
+    np.savez_compressed(
+        QSV_RAYS_FILE, rays=both, tidx=ti, field_ids=ids,
+        fields=host(ttfs, ids), src=host(src, both), rec=host(rec, both),
+        search_rays=s_rays, search_len=host(out[2], s_rays),
+        search_reason=host(out[4], s_rays), search_time=host(out[3], s_rays),
+        auto_rays=a_rays, auto_time=host(auto_times, a_rays))
+    log(f"  the rays that did not arrive and their fields: {QSV_RAYS_FILE}")
+
+
+def check_over_qp(times, qp_times, what):
+    """Every qSV ray time within QSV_OVER_QP of the same pair's qP time."""
+    ratio = (torch.as_tensor(times).double().cpu()
+             / torch.as_tensor(qp_times).double().cpu())
+    lo, hi = float(ratio.min()), float(ratio.max())
+    log(f"  {what}: qSV over qP ray time min {lo:.4f} median "
+        f"{float(ratio.median()):.4f} max {hi:.4f} (bounds {QSV_OVER_QP})")
+    check(QSV_OVER_QP[0] <= lo and hi <= QSV_OVER_QP[1],
+          f"{what}: qSV ray times outside {QSV_OVER_QP} of the qP times")
+    return dict(min=lo, max=hi, median=float(ratio.median()))
+
+
+def phase_qsv_slice(inputs, qp_times, qp_final_ms, device):
+    """(11c, 11d): the qSV weld slice (31 fields, 961 rays, float32) under
+    for_mode("qsv"): directly (solve_ttf + trace_rays with the weld's
+    knobs; a warm-up run, then a timed one with every count set to 0 just
+    before it), through ALI_FMM with the weld's knobs and with
+    ``ray_opts={"tracer": "auto"}`` (likewise), K4 against its twin on
+    the qSV fields; then K1 timed warm at the final shape beside the qP
+    weld's time and its bound."""
+    import warnings
+
+    import alifmm_tpu_torch
+    from alifmm_tpu_torch import rays, solver, weld_data
+    from alifmm_tpu_torch.ops import cuda_sweep
+    from alifmm_tpu_torch.ops.stencils import INF
+
+    t0 = time.perf_counter()
+    model = qsv_weld_model(torch.float32, device)
+    torch.cuda.synchronize()
+    log(f"  qSV weld model build {time.perf_counter() - t0:.3f} s")
+    q_inputs = (model,) + tuple(inputs[1:])
+    cfg = solver.SolveConfig.for_mode("qsv")
+    t0 = time.perf_counter()
+    run_slice(q_inputs, cfg=cfg)
+    log(f"  warm-up run {time.perf_counter() - t0:.3f} s")
+    stages = []
+
+    def rec(stage, total, name, seconds):
+        stages.append((name, seconds))
+
+    reset_counts()
+    ttfs, info, out, (t_solve, t_rays, wall) = run_slice(q_inputs, rec, cfg)
+    counts = read_counts()
+    times = out[3]
+    log(f"  direct qSV weld slice warm wall clock {wall:.4f} s (solve "
+        f"{t_solve:.4f} s, rays {t_rays:.4f} s)")
+    for name, sec in stages:
+        log(f"    stage [{name}] {sec:.4f} s")
+    log(f"  final stage passes {info.passes} converged {info.converged}")
+    log(f"  launches and plain-twin counts: {counts}")
+    check_tracer_counts(counts, "search", 0, "the direct qSV weld slice")
+    check(info.converged and info.passes < 96,
+          f"qSV weld: the final stage did not converge in 96 passes "
+          f"({info.passes}, converged {info.converged})")
+    check(ttfs.shape == (31, 424, 500), f"field shape {tuple(ttfs.shape)}")
+    check(bool(torch.isfinite(ttfs).all()) and bool((ttfs < INF * 0.5).all()),
+          "qSV weld fields not finite everywhere")
+    res = dict(wall=wall, solve=t_solve, rays=t_rays, stages=stages,
+               passes=info.passes, converged=info.converged, counts=counts,
+               search=qsv_search_ends(out, q_inputs[4], "qSV weld, search"),
+               over_qp=check_over_qp(times, qp_times, "qSV weld, direct"))
+
+    auto_times, res["auto"] = qsv_auto_arrival(model, ttfs, q_inputs,
+                                               "qSV weld, auto (direct)")
+    save_not_arrived(ttfs, q_inputs, out, res["search"]["early"],
+                     auto_times, res["auto"]["not_arrived"])
+    alifmm_tpu_torch.tqdm_disable = True  # a bar synchronises every stage
+    veln, velpn, vel_map = qsv_weld_arrays()
+    _, _, _, _, sx, sy, pairs, dnx = weld_data.workload(0)
+    g, p = qsv_tables()
+    pi, pj = np.nonzero(pairs == 1)
+    direct = {"search": times.double().cpu().numpy(),
+              "auto": auto_times.double().cpu().numpy()}
+    for tracer, ray_opts in (("search", RAY_OPTS),
+                             ("auto", {"tracer": "auto"})):
+        fm = alifmm_tpu_torch.ALI_FMM(veln, velpn, vel_map, sx, sy,
+                                      group_vel=g, phase_vel=p, dnx=dnx,
+                                      ray_opts=ray_opts, solve_opts=cfg)
+
+        def call():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                t0 = time.perf_counter()
+                tmat = fm.find_all_TTF_rays_parallel(
+                    veln, velpn, vel_map, trans_pairs=pairs, n_threads=8)
+                torch.cuda.synchronize()
+                return tmat, time.perf_counter() - t0
+
+        call()
+        reset_counts()
+        tmat, f_wall = call()
+        f_counts = read_counts()
+        what = f"qSV weld facade, tracer {tracer}"
+        check_tracer_counts(f_counts, tracer, f_counts["march"], what)
+        traced = pairs == 1
+        got = tmat[pi, pj]
+        ok = np.isfinite(got) & (got > 0)
+        log(f"  {what}: warm call {f_wall:.4f} s; {int(ok.sum())} of "
+            f"{len(got)} finite positive times; counts {f_counts}")
+        check(bool(ok.all()) and len(got) == 961 and not tmat[~traced].any()
+              and np.array_equal(fm.ray_len > 0, traced),
+              f"{what}: times not finite and positive on exactly the 961 "
+              f"pairs")
+        entry = dict(wall=f_wall, counts=f_counts,
+                     over_qp=check_over_qp(got, qp_times, what))
+        rel = float((np.abs(got - direct[tracer]) / direct[tracer]).max())
+        log(f"  {what}: times against the direct path's max rel {rel:.3e}")
+        check(rel <= 1e-6, f"{what}: times differ from the direct path's")
+        entry["vs_direct_max_rel"] = rel
+        if tracer == "auto":
+            gap = (got - direct["search"]) / direct["search"]
+            entry["vs_search"] = dict(max_abs_rel=float(np.abs(gap).max()),
+                                      median_rel=float(np.median(gap)))
+            log(f"  {what}: times against the weld knobs' search: max |rel| "
+                f"{entry['vs_search']['max_abs_rel']:.4e}, median "
+                f"{entry['vs_search']['median_rel']:.4e}")
+        res[f"facade_{tracer}"] = entry
+
+    # K4 against its twin on the qSV fields, the facade's descent defaults
+    mat_flat, tidx, src, rec_xy, spec, cross = descent_inputs(
+        model, {}, weld_data.SUBGRID, sx, sy, pairs, dnx)
+    args = (model, mat_flat, ttfs, tidx, src, rec_xy, spec)
+    ms_twin, want = time_host(lambda: rays.descent_plain(*args))
+    k4 = descent_vs_twin(args, want, cross, torch.float32,
+                         "qSV weld score_k 0 float32")
+    reasons = {int(k): int(v) for k, v in
+               zip(*np.unique(want[3].cpu().numpy(), return_counts=True))}
+    arrived = int(((want[3] == 0) & (want[4] < spec.max_steps)).sum())
+    log(f"  K4 on the qSV fields (twin {ms_twin:.1f} ms): rays by reason "
+        f"(0 arrived or out of steps, 1 stalled) {reasons}; arrived within "
+        f"the {spec.max_steps}-step budget {arrived} of 961")
+    k4.update(reasons=reasons, arrived=arrived, plain_ms=ms_twin)
+    res["k4"] = k4
+
+    # (11d) K1 warm at the final shape, beside the qP weld's (phase 8)
+    name, fmodel, tt0, fixed = stage_inputs(q_inputs, cfg)[-1]
+    packed = cuda_sweep.pack_model(fmodel)
+    B, Z, X = tt0.shape
+    C, G = cuda_sweep.launch_config(B, Z, X, cuda_sweep._sm_count(
+        tt0.device))
+    ms, _ = time_k1(tt0, fixed, packed)
+    bound, by = bound_ms(tt0, fixed, packed)
+    log(f"  [11d] qSV {name} ({B} sources) K1 {ms:.4f} ms per pass at C={C} "
+        f"G={G}; bound {bound:.4f} ms ({by}), share {bound / ms:.4f}; the "
+        f"qP weld's final shape {qp_final_ms:.4f} ms (phase 8)")
+    res["k1"] = dict(stage=name, sources=B, cluster=C, lanes=G, ms=ms,
+                     bound_ms=bound, bound_by=by, share=bound / ms,
+                     qp_ms=qp_final_ms)
+    return res
+
+
 SCORER_NAMES = {0: "simpson3", 1: "simpson5", 2: "walk", 3: "exact"}
 
 
@@ -2691,8 +3294,9 @@ def main():
     log("[4c] K4 (the descent march) against its plain twin on 48 x 56, "
         "and trace_rays_descent against its composed twin")
     descent_worst = phase_descent_vs_plain(device)
-    log("[5] analytic check at full size")
-    phase_analytic(device)
+    log("[5] analytic checks: the isotropic 424 x 500 field with the "
+        "default and the accuracy budget; the accuracy preset's cases")
+    analytic = phase_analytic(device)
     log("[5b] K1 against its plain twin at the fine path's patch shapes")
     fine_k1_worst = phase_fine_k1_vs_plain(device)
     log("[5c] analytic check on the refined grid (s = 9)")
@@ -2732,6 +3336,23 @@ def main():
     log("[10b] K4 in grid mode on the fine fields: against its twin, and "
         "timed beside its bound")
     k4_fine = phase_descent_fine(inputs, fine, descent_worst)
+    log("[11] shear modes: K1's interpolated table lookup against its "
+        "twin (11a), homogeneous qSV media (11b), the qSV weld slice direct "
+        "and through the facade (11c), K1 at its final shape (11d)")
+    qsv_k1_worst = phase_qsv_kernel(device)
+    log("[11b] homogeneous qSV 33 x 37, float64, for_mode('qsv')")
+    qsv_homog = phase_qsv_homogeneous(device)
+    log("[11c] the qSV weld slice (31 fields, 961 rays, float32, "
+        "for_mode('qsv')): direct, then through the facade")
+    qsv = phase_qsv_slice(inputs, coarse_times, final["ms"], device)
+    c = qsv["counts"]
+    log(f"  qSV weld slice: direct {qsv['wall']:.4f} s (solve "
+        f"{qsv['solve']:.4f} s, rays {qsv['rays']:.4f} s; stages "
+        + ", ".join(f"{n} {t:.4f} s" for n, t in qsv["stages"])
+        + f"), final passes {qsv['passes']} converged {qsv['converged']}, "
+        f"launches K1 {c['sweep_pass']} K2 {c['march']} K3 "
+        f"{c['relax_times']}; facade {qsv['facade_search']['wall']:.4f} s, "
+        f"with auto {qsv['facade_auto']['wall']:.4f} s")
     for key in fine_rays:
         merge_worst(ray_worst, fine_rays[key].pop("errs"))
     vs_twin = fine_shapes[-1]["vs_twin"]
@@ -2755,7 +3376,7 @@ def main():
         "source": "alifmm_tpu_torch/csrc/sweep.cu",
         "replaces": "alifmm_tpu/ops/pallas_sweep.py:124",
         "launches": counts["sweep_pass"],
-        "max_abs_err": max(worst, abs_e, fine_k1_worst),
+        "max_abs_err": max(worst, abs_e, fine_k1_worst, qsv_k1_worst),
         "ms": final["ms"],
         "plain_ms": ms_p,
         "bound_ms": final["bound_ms"],
@@ -2764,11 +3385,22 @@ def main():
         "cluster": final["cluster"],
         "lanes": final["lanes"],
         "shapes": shapes + fine_shapes,
+        "weld_slice": dict(wall=wall, solve=t_solve, rays=t_rays,
+                           facade_wall=facade_wall,
+                           facade_model_builds=t_builds),
         "launches_fine_slice": fc["sweep_pass"],
         "fine_slice": {k: fine[k] for k in (
             "wall", "solve", "rays", "passes", "converged", "peak_gb",
             "facade_wall", "exact_rays", "gap_max", "gap_median")},
         "analytic_fine": analytic_fine,
+        "analytic": analytic,
+        "max_abs_err_table_lookup": qsv_k1_worst,
+        "qsv_final_shape": qsv["k1"],
+        "launches_qsv_slice": qsv["counts"]["sweep_pass"],
+        "qsv_slice": {k: qsv[k] for k in (
+            "wall", "solve", "rays", "stages", "passes", "converged",
+            "over_qp", "facade_search", "facade_auto")},
+        "qsv_homogeneous": qsv_homog,
     }]
     defaults = weld["facade defaults"]
     kernels.append(ray_kernel_entry(
@@ -2809,6 +3441,7 @@ def main():
         "fmc": fmc["k4"],
         "grid_tap": k4_fine,
         "launches_auto": fmc["tracers"]["auto"]["facade_counts"]["descent"],
+        "qsv_weld": qsv["k4"],
         "share": k4_weld["score_k 0"]["share"],
         "warps_per_sm": k4_weld["score_k 0"]["warps_per_sm"],
         "registers": {k: v[0] for k, v in regs.items()

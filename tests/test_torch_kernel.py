@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch twins on a CUDA device:
-K1 (csrc/sweep.cu), the ray kernels K2 and K3 (csrc/rays.cu), with
+K1 (csrc/sweep.cu, its interpolated table lookup included), the ray
+kernels K2 and K3 (csrc/rays.cu), with
 their fine-path instantiations (nearest-point tap, exact materials,
 fast-stride mask), and K4, the descent march (csrc/descent.cu).
 
@@ -116,6 +117,20 @@ def test_k1_pass_matches_plain_twin(device, dtype, case):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_k1_fixpoint_and_patches_match_plain_twin(device, dtype):
     chip_smoke.check_fixpoint(dtype, device)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.QSV_PASS_CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k1_table_lookup_matches_plain_twin(device, dtype, case):
+    """K1's interpolated table lookup (a qSV table column, column mode 2):
+    a min pass and a replace pass, max abs 0 against the graphed twin."""
+    chip_smoke.check_qsv_case(case, dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k1_qsv_fixpoint_matches_plain_twin(device, dtype):
+    """The fixpoint under for_mode("qsv")'s final-stage budget."""
+    chip_smoke.check_qsv_fixpoint(dtype, device)
 
 
 def test_k1_wrapper_rejects_mismatched_planes(device):

@@ -1,7 +1,8 @@
 """PyTorch port, sweeps: the plain twin of the sweep kernel (ops/sweep.py)
 against the JAX XLA sweep (float64) and against the Pallas sweep kernel
 run in interpret mode (float32), on the 20 x 26 model of
-tests/test_pallas_sweep.py with three seeded sources."""
+tests/test_pallas_sweep.py with three seeded sources, and on a version of
+it whose table column varies with the angle (qSV tables)."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import jax
 import jax.numpy as jnp
 
 from alifmm_tpu import grid as jgrid
+from alifmm_tpu import materials as jmats
 from alifmm_tpu.ops import pallas_sweep
 from alifmm_tpu.ops import stencils as jst
 from alifmm_tpu.ops import sweep as jsweep
@@ -22,6 +24,7 @@ from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 RTOL_F64 = 1e-9   # same operations in float64: ulps, no tie flips
 RTOL_PALLAS = 1e-4  # the kernel's folded-coefficient velocity and
                     # polynomial arctan differ by up to 2e-5 in float32
+RTOL_TABLE = 1e-10  # one pass through the interpolated lookup
 
 
 def _jax_model(dtype):
@@ -104,6 +107,47 @@ def test_solve_fixpoint_matches_jax(f64, solve):
     _assert_close(got.numpy(), np.asarray(want), fixed, RTOL_F64)
     assert info.passes == int(winfo.passes)
     assert info.converged == bool(winfo.converged)
+
+
+def _qsv_table_model():
+    """The 20 x 26 layout with every phase-velocity path of the sweep:
+    column 2 a constant table column (vel_map 3240 m/s), column 1 the qSV
+    first-arrival pair of generate_mode_curves, interpolated by angle, and
+    a stiffness block (velpn 0, the Christoffel solve)."""
+    Z, X = 20, 26
+    rng = np.random.default_rng(4)
+    g, p = jmats.generate_mode_curves(263e9, 148e9, 216e9, 129e9, 8100.0,
+                                      mode="qSV")
+    gtab = np.stack([np.arange(361.0), g, np.ones(361)], axis=1)
+    ptab = np.stack([np.arange(361.0), p, np.ones(361)], axis=1)
+    veln = np.round(rng.uniform(0, 180, (Z, X)))
+    velpn = np.full((Z, X), 2)
+    velpn[3:17, 4:22] = 1
+    velpn[8:12, 10:16] = 0
+    vel_map = np.where(velpn == 2, 3240.0, 1.0)
+    stif = np.zeros((Z, X, 5), dtype=np.int64)
+    stif[:, :] = [263000, 148000, 216000, 129000, 8100]
+    jm = jgrid.make_model(veln, velpn, vel_map, stif, gtab, ptab, 2e-4,
+                          dtype=jnp.float64)
+    return jm, _torch_model(jm, torch.float64)
+
+
+def test_gs_pass_varying_table_column_matches_jax():
+    """A min pass and a replace pass where the ALI update interpolates a
+    varying table column (K1's column mode 2)."""
+    jm, tm = _qsv_table_model()
+    assert [c is None for _, c in tm.phase_info] == [True, False]
+    tt0, fixed = _seeded(jm.shape, np.float64)
+    jpass = jax.jit(jsweep.gs_pass)
+    t = torch.from_numpy
+    want1 = np.asarray(jpass(jnp.asarray(tt0), jm, jnp.asarray(fixed), False))
+    got1 = tsweep.gs_pass(t(tt0), tm, t(fixed), replace=False).numpy()
+    _assert_close(got1, want1, fixed, RTOL_TABLE)
+    mid = np.asarray(jpass(jnp.asarray(want1), jm, jnp.asarray(fixed), False))
+    want2 = np.asarray(jpass(jnp.asarray(mid), jm, jnp.asarray(fixed), True))
+    got2 = tsweep.gs_pass(t(mid.copy()), tm, t(fixed), replace=True).numpy()
+    _assert_close(got2, want2, fixed, RTOL_TABLE)
+    assert np.any(want2 != mid)
 
 
 def test_unported_forms_raise(f64):
