@@ -23,8 +23,10 @@ plane search ``rays.trace_rays``), ``"descent"`` (``trace_rays_descent``)
 or ``"auto"`` (``trace_rays_auto``: the descent, with the plane search for
 the rays it cannot certify); the other keys are the tracer's knobs.
 
-Waiting in ROADMAP.md's queue and raising NotImplementedError here:
-``grid_mesh`` (the sharded solve).
+``grid_mesh`` (a ``parallel.Mesh``) solves every travel-time field with
+the grid split over its axis ``grid_axis`` (one name for z slabs, two for
+z and x blocks): ``parallel/shard.solve_ttf_halo``, whose final stage runs
+on the slab sweep kernel K5 with halo exchanges between the slabs.
 """
 
 from __future__ import annotations
@@ -91,10 +93,6 @@ class ALI_FMM:
         velpn = np.asarray(velpn)
         if not np.issubdtype(velpn.dtype, np.integer):
             raise TypeError("velpn must be a numpy array of integers")
-        if grid_mesh is not None:
-            raise NotImplementedError(
-                "grid_mesh (the sharded solve) is not ported yet: ROADMAP.md "
-                "Queue 1, parallel/")
 
         if group_vel is None:
             g, p = mats.default_tables()
@@ -144,6 +142,8 @@ class ALI_FMM:
             self._cfg = solve_opts
         else:
             self._cfg = solverlib.SolveConfig(**dict(solve_opts or {}))
+        # a parallel.Mesh: every field is solved by the halo path with the
+        # grid split over ``grid_axis``; None solves on the model's device
         self._grid_mesh = grid_mesh
         self._grid_axis = grid_axis
 
@@ -167,7 +167,16 @@ class ALI_FMM:
         )
 
     def _solve_fields(self, model, scx, scz, subgrid_size, progress=None):
-        """One batched travel-time solve, (n, Z, X) on the model's device."""
+        """One batched travel-time solve, (n, Z, X): on the model's device,
+        or the halo solve over ``grid_mesh``, gathered on its first
+        device."""
+        if self._grid_mesh is not None:
+            from .parallel import shard
+
+            return shard.solve_ttf_halo(
+                model, scx, scz, self._grid_mesh, axis=self._grid_axis,
+                subgrid_size=int(subgrid_size), cfg=self._cfg,
+            ).to(model.device)
         return solverlib.solve_ttf(
             model, scx, scz, int(subgrid_size), self._cfg, progress=progress
         )

@@ -73,6 +73,9 @@
 // on the selected stencil; strict '<' keeps the first stencil on ties.
 // Phase velocity is the table lookup (velpn != 0) or the closed-form
 // Christoffel solve (velpn == 0), as grid.phase_velocity_at evaluates it.
+//
+// K5, the slab sweep of the halo solves, follows K1 in this file and
+// shares its per-point device functions (see its own note below).
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -891,6 +894,267 @@ int launch(const void* tt_in, void* tt_out, void* scratch, const void* fixed,
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------
+// K5: one directional sweep over the slabs of a decomposed grid.
+//
+// Ports alifmm_tpu/ops/sweep.py::_sweep_axis with its slab arguments
+// (scan_off / scan_total, width_off / width_total) and its per-line carry
+// refresh (halo_axis, refresh_carry), which the halo solves of
+// alifmm_tpu/parallel/shard.py (_halo_jacobi_block, _halo_block2d) run
+// between their halo exchanges.  That is XLA code, not a Pallas kernel.
+// The plain twin is alifmm_tpu_torch/ops/sweep.py::slab_sweep.
+//
+// A slab is a (B, Zm, Xm) block of the grid with two halo rows (and, on a
+// 2D mesh, two halo columns) on each side, marked fixed: the halos are
+// read as data and never updated.  One launch runs one direction (z or x,
+// forward or reverse, min or replace) over a range of lines of every slab
+// in its table (up to kMaxSlabs; the slabs of one device), a cluster of C
+// CTAs per (slab, source), each CTA a width tile.  A point's in-bounds
+// masks and edge flags come from its global coordinates (the slab's
+// offsets) against the true grid's extents, so INF lies only beyond the
+// true grid and past the slab's own ends.  Each point goes through K1's
+// device functions (candidates<T, G>, with the first-wins selections, and
+// finish), so it takes the same operations as in K1 and in the twin.
+//
+// The field is updated in place.  A line step loads the five-line band of
+// its tile (two width points beyond it on each side) from global memory
+// into shared memory, meets the cluster (no CTA writes the line before
+// every CTA has read its old values), computes and stores the new values
+// of its non-fixed points, and meets the cluster again (the next line
+// reads them).  `refresh` >= 0 first splices that line's halo slots from
+// the slabs before and after the slab across the width (their points
+// W-4, W-3 and 2, 3, written by an earlier launch; INF at the grid's
+// edge), read through the table's pointers: the halo solves launch K5
+// once a line across the slabs whose boundaries the line crosses, each
+// launch refreshing the line the previous one swept.
+//
+// What bounds it: the same local update as K1's (about 1,000 operations a
+// point), so operations; but every line step is two cluster barriers and
+// a band read from L2, and a one-line launch pays the launch itself.  No
+// delta or scale here: a round's delta and scale are one reduction over
+// the slab interiors (ops/cuda_sweep.py).  Making it fast (a line block
+// with redundant halo rows, or one launch a sweep) is later work.
+
+constexpr int kMaxSlabs = 16;
+
+// One slab of a launch, as the host packs it (ops/cuda_sweep.py).
+struct SlabEntry {
+  void* field;         // (B, Zm, Xm), updated in place
+  const void* fixed;   // (B, Zm, Xm) uint8
+  const void* mats;    // (12, Zm, Xm) material planes
+  const void* mats_t;  // (12, Xm, Zm), the same for the x-sweeps
+  const void* before;  // the slab before this one across the width, or null
+  const void* after;   // the slab after it, or null
+  int scan_off, width_off;  // global index of local line 0 and width 0
+};
+
+template <typename T>
+struct SlabArgs {
+  SlabEntry slab[kMaxSlabs];
+  Tables tb;
+  T dnx;
+  int n_slabs, B, Zm, Xm, xs, l0, n_lines, step, refresh, replace;
+  int scan_total, width_total, C, tile;
+};
+
+template <typename T>
+__host__ __device__ inline size_t slab_smem_bytes(int tile) {
+  return (5 * (size_t)(tile + 4) + 7 * (size_t)tile
+          + N_PLANES * (size_t)tile) * sizeof(T)
+       + (kTabInts + (size_t)tile) * sizeof(int) + (size_t)tile;
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kMaxThreads, G == 4 ? 2 : 1)
+slab_sweep_kernel(const SlabArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int sb = blockIdx.x / a.C;
+  const int b = sb % a.B;
+  const SlabEntry& e = a.slab[sb / a.B];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int Xm = a.Xm;
+  const long long plane = (long long)a.Zm * Xm;
+  T* fld = static_cast<T*>(e.field) + b * plane;
+  const uint8_t* fx = static_cast<const uint8_t*>(e.fixed) + b * plane;
+  const bool xs = a.xs != 0;
+  const int L = xs ? Xm : a.Zm, W = xs ? a.Zm : Xm;
+  const int Zg = xs ? a.width_total : a.scan_total;
+  const int Xg = xs ? a.scan_total : a.width_total;
+  const int tile = a.tile, bw = tile + 4;
+  const int w0 = rank * tile;
+  const int nw = W - w0 < tile ? (W - w0 > 0 ? W - w0 : 0) : tile;
+  const T half_inf = T(kINF * 0.5);
+  auto fidx = [&](int l, int w) -> long long {
+    return xs ? (long long)w * Xm + l : (long long)l * Xm + w;
+  };
+
+  T* band = reinterpret_cast<T*>(smem_raw);  // 5 x bw: lines i-2 .. i+2
+  T* rec = band + 5 * bw;                     // 7 x tile: Rec fields
+  T* mat = rec + 7 * tile;                    // 12 x tile: the line's materials
+  int* tabs = reinterpret_cast<int*>(mat + N_PLANES * tile);
+  int* flg = tabs + kTabInts;                 // tile
+  uint8_t* fix = reinterpret_cast<uint8_t*>(flg + tile);
+  for (int k = tid; k < kTabInts; k += nt) {
+    int v;
+    if (k < 48) v = (&kSquare[0][0])[k];
+    else if (k < 96) v = (&kTri[0][0])[k - 48];
+    else if (k < 104) v = kTriEdge[k - 96];
+    else if (k < 136) v = (&kQuad[0][0])[k - 104];
+    else v = (&kKnight[0][0])[k - 136];
+    tabs[k] = v;
+  }
+  const Tabs tb_o{tabs, tabs + 48, tabs + 96, tabs + 104, tabs + 136};
+
+  if (a.refresh >= 0) {
+    // slots 0, 1 from the slab before (its W-4, W-3), slots W-2, W-1 from
+    // the slab after (its 2, 3), INF at the grid's edge
+    if (rank == 0 && tid < 4) {
+      const T* nb = static_cast<const T*>(tid < 2 ? e.before : e.after);
+      const int from = tid < 2 ? W - 4 + tid : tid;
+      const int to = tid < 2 ? tid : W - 4 + tid;
+      const T v = nb ? __ldcg(nb + b * plane + fidx(a.refresh, from))
+                     : T(kINF);
+      __stcg(fld + fidx(a.refresh, to), v);
+    }
+    cluster.sync();
+  }
+
+  const bool rep = a.replace != 0;
+  const int lane = tid % G, group = tid / G, ngroups = nt / G;
+  const T* mline = static_cast<const T*>(xs ? e.mats_t : e.mats);
+  for (int s = 0; s < a.n_lines; ++s) {
+    const int i = a.l0 + s * a.step;
+    for (int q = tid; q < 5 * (nw + 4); q += nt) {
+      const int r = q / (nw + 4), j = q % (nw + 4);
+      const int l = i - 2 + r, w = w0 - 2 + j;
+      band[r * bw + j] = (l >= 0 && l < L && w >= 0 && w < W)
+                             ? __ldcg(fld + fidx(l, w)) : T(kINF);
+    }
+    for (int q = tid; q < N_PLANES * nw; q += nt) {
+      const int pl = q / nw, p = q % nw;
+      mat[pl * tile + p] = mline[pl * plane + (long long)i * W + w0 + p];
+    }
+    for (int p = tid; p < nw; p += nt) fix[p] = fx[fidx(i, w0 + p)];
+    cluster.sync();  // every CTA holds line i's old values before any write
+
+    const int gl = i + e.scan_off;
+    for (int p0 = 0; p0 < nw; p0 += ngroups) {
+      const int p = p0 + group;
+      const bool valid = p < nw;
+      const int pc = valid ? p : nw - 1;
+      const int gw = w0 + pc + e.width_off;
+      Nb<T> n{band, bw, pc + 2, xs, xs ? gw : gl, xs ? gl : gw, Zg, Xg,
+              band[2 * bw + pc + 2]};
+      T fb[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fb[q] = mat[(P_FB0 + q) * tile + pc];
+      const Rec<T> r = candidates<T, G>(n, lane, fb, tb_o, a.dnx);
+      if (valid && lane == 0) {
+        rec[0 * tile + pc] = r.dx;
+        rec[1 * tile + pc] = r.dz;
+        rec[2 * tile + pc] = r.oang;
+        rec[3 * tile + pc] = r.dist;
+        rec[4 * tile + pc] = r.wt;
+        rec[5 * tile + pc] = r.mx;
+        rec[6 * tile + pc] = r.fouds;
+        flg[pc] = r.flags;
+      }
+    }
+    __syncthreads();
+    for (int p = tid; p < nw; p += nt) {
+      if (fix[p]) continue;
+      Rec<T> r;
+      r.dx = rec[0 * tile + p];
+      r.dz = rec[1 * tile + p];
+      r.oang = rec[2 * tile + p];
+      r.dist = rec[3 * tile + p];
+      r.wt = rec[4 * tile + p];
+      r.mx = rec[5 * tile + p];
+      r.fouds = rec[6 * tile + p];
+      r.flags = flg[p];
+      T m[N_PLANES];
+#pragma unroll
+      for (int q = 0; q < N_PLANES; ++q) m[q] = mat[q * tile + p];
+      const T tc = band[2 * bw + p + 2];
+      const T nv = finish(r, m, a.tb, a.dnx);
+      const T acc_min = vmin(tc, nv);
+      const T acc_rep = nv < half_inf ? nv : tc;
+      __stcg(fld + fidx(i, w0 + p), rep ? acc_rep : acc_min);
+    }
+    cluster.sync();  // line i's new values reach every CTA of the cluster
+  }
+}
+
+template <typename T, int G>
+int launch_slab_g(const SlabArgs<T>& a, int nt, size_t smem,
+                  cudaStream_t st) {
+  auto kern = slab_sweep_kernel<T, G>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_slabs * a.B * a.C);
+  cfg.blockDim = dim3(nt);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_slab(const void* table, int n_slabs, int B, int Zm, int Xm,
+                int xs, int l0, int n_lines, int step, int refresh,
+                int replace, int scan_total, int width_total, const void* tab,
+                int M, const void* col_mode, const void* col_const,
+                int has_stif, double dnx, int C, int G, void* stream) {
+  const int L = xs ? Xm : Zm, W = xs ? Zm : Xm;
+  const int last = l0 + (n_lines - 1) * step;
+  if (n_slabs < 1 || n_slabs > kMaxSlabs || B <= 0 || Zm <= 0 || Xm <= 0
+      || W < 6 || C < 1 || C > kMaxCluster || (step != 1 && step != -1)
+      || n_lines < 0 || refresh < -1 || refresh >= L
+      || (n_lines > 0 && (l0 < 0 || l0 >= L || last < 0 || last >= L)))
+    return (int)cudaErrorInvalidValue;
+  SlabArgs<T> a;
+  const SlabEntry* entries = static_cast<const SlabEntry*>(table);
+  for (int k = 0; k < n_slabs; ++k) a.slab[k] = entries[k];
+  a.tb = Tables{tab, M, static_cast<const int*>(col_mode), col_const,
+                has_stif};
+  a.dnx = T(dnx);
+  a.n_slabs = n_slabs;
+  a.B = B;
+  a.Zm = Zm;
+  a.Xm = Xm;
+  a.xs = xs;
+  a.l0 = l0;
+  a.n_lines = n_lines;
+  a.step = step;
+  a.refresh = refresh;
+  a.replace = replace;
+  a.scan_total = scan_total;
+  a.width_total = width_total;
+  a.C = C;
+  a.tile = (W + C - 1) / C;
+  int nt = ((a.tile * G + 31) / 32) * 32;
+  nt = nt > kMaxThreads ? kMaxThreads : nt;
+  const size_t smem = slab_smem_bytes<T>(a.tile);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G == 4) return launch_slab_g<T, 4>(a, nt, smem, st);
+  if (G == 8) return launch_slab_g<T, 8>(a, nt, smem, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -923,6 +1187,52 @@ int alifmm_sweep_pass_f64(const void* tt_in, void* tt_out, void* scratch,
                         mats_bstride, tab, M, col_mode, col_const, has_stif,
                         dnx, replace, active, delta, scale, B, Z, X, C, G,
                         stream);
+}
+
+// K5: one directional sweep over the slabs of `table` (n_slabs SlabEntry
+// records in host memory), lines l0, l0 + step, ... (n_lines of them),
+// after refreshing line `refresh`'s halo slots when it is >= 0; returns
+// the CUDA error of the attribute set or the launch.
+int alifmm_slab_sweep_f32(const void* table, int n_slabs, int B, int Zm,
+                          int Xm, int xs, int l0, int n_lines, int step,
+                          int refresh, int replace, int scan_total,
+                          int width_total, const void* tab, int M,
+                          const void* col_mode, const void* col_const,
+                          int has_stif, double dnx, int C, int G,
+                          void* stream) {
+  return launch_slab<float>(table, n_slabs, B, Zm, Xm, xs, l0, n_lines, step,
+                            refresh, replace, scan_total, width_total, tab,
+                            M, col_mode, col_const, has_stif, dnx, C, G,
+                            stream);
+}
+
+int alifmm_slab_sweep_f64(const void* table, int n_slabs, int B, int Zm,
+                          int Xm, int xs, int l0, int n_lines, int step,
+                          int refresh, int replace, int scan_total,
+                          int width_total, const void* tab, int M,
+                          const void* col_mode, const void* col_const,
+                          int has_stif, double dnx, int C, int G,
+                          void* stream) {
+  return launch_slab<double>(table, n_slabs, B, Zm, Xm, xs, l0, n_lines,
+                             step, refresh, replace, scan_total, width_total,
+                             tab, M, col_mode, col_const, has_stif, dnx, C,
+                             G, stream);
+}
+
+// Lets `device` read and write `peer`'s memory (K5's halo refresh reads
+// the neighbouring slabs through their pointers); 0 when it already can.
+int alifmm_enable_peer_access(int device, int peer) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    e = cudaSuccess;
+  }
+  cudaSetDevice(prev);
+  return (int)e;
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""K1, the sweep kernel on the GPU, and the fixpoint pass loop.
+"""K1, the sweep kernel on the GPU, the fixpoint pass loop, and K5, the
+slab sweep of the decomposed grid.
 
 Counterpart of ``alifmm_tpu/ops/pallas_sweep.py``.  ``csrc/sweep.cu`` runs
 one full pass (four directional Gauss-Seidel sweeps) for a batch of
@@ -13,6 +14,13 @@ on any failure), for CPU tensors it runs the plain twin
 (``ops/sweep.gs_pass``).  ``LAUNCHES`` counts kernel launches.
 ``solve_fixpoint`` is the two-phase pass loop the solver calls; it reads
 the per-pass delta and scale to the host once per pass.
+
+K5 (``csrc/sweep.cu``, same library) runs one directional sweep over the
+slabs of a decomposed grid, in place, in global coordinates, with the
+per-line halo refresh of the halo solves (``parallel/shard.py``).
+``slab_sweep`` is its wrapper (the plain twin ``ops/sweep.slab_sweep`` for
+CPU tensors), ``SlabSweep`` binds it to a set of slabs for a whole solve,
+``SLAB_LAUNCHES`` counts its launches.
 """
 
 from __future__ import annotations
@@ -28,10 +36,12 @@ from .. import grid as gridlib
 from .. import materials as mat
 from . import _build, sweep
 
-__all__ = ["LAUNCHES", "build", "launch_config", "pack_model", "sweep_pass",
-           "solve_fixpoint"]
+__all__ = ["LAUNCHES", "SLAB_LAUNCHES", "build", "launch_config",
+           "pack_model", "sweep_pass", "solve_fixpoint", "slab_config",
+           "SlabSweep", "slab_sweep"]
 
 LAUNCHES = 0
+SLAB_LAUNCHES = 0
 
 SOURCE = os.path.join(_build.CSRC, "sweep.cu")
 _LIB = None
@@ -63,6 +73,13 @@ def build(verbose: bool = False):
                        i32, ptr, ptr, i32, ctypes.c_double, ptr, ptr, ptr,
                        ptr, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
+    for name in ("alifmm_slab_sweep_f32", "alifmm_slab_sweep_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] + [i32] * 12 + [ptr, i32, ptr, ptr, i32,
+                                            ctypes.c_double, i32, i32, ptr]
+        fn.restype = i32
+    lib.alifmm_enable_peer_access.argtypes = [i32, i32]
+    lib.alifmm_enable_peer_access.restype = i32
     _LIB = lib
     return lib
 
@@ -222,3 +239,188 @@ def solve_fixpoint(tt0, model: gridlib.Model, fixed, rel_tol: float = 1e-6,
 
     return sweep.two_phase(tt0, pass_fn, per_source, rel_tol, max_passes,
                            min_passes, polish_passes, max_polish_passes)
+
+
+# --------------------------------------------------------------------- #
+# K5: the slab sweep of the halo solves
+# --------------------------------------------------------------------- #
+
+MAX_SLABS = 16  # slabs in one K5 launch (csrc/sweep.cu, kMaxSlabs)
+
+
+class _SlabEntry(ctypes.Structure):
+    """csrc/sweep.cu's SlabEntry: one slab of a K5 launch."""
+
+    _fields_ = [("field", ctypes.c_void_p), ("fixed", ctypes.c_void_p),
+                ("mats", ctypes.c_void_p), ("mats_t", ctypes.c_void_p),
+                ("before", ctypes.c_void_p), ("after", ctypes.c_void_p),
+                ("scan_off", ctypes.c_int), ("width_off", ctypes.c_int)]
+
+
+def slab_config(clusters: int, W: int, sms: int):
+    """K5's (cluster size C, lanes per point G) for ``clusters`` (slab,
+    source) pairs of lines W wide, by K1's rule (``launch_config``): the
+    largest C that keeps every CTA resident at two an SM with tiles of
+    ``MIN_TILE`` to ``MAX_TILE`` points; G = 8 where a line step is
+    latency-bound."""
+    lanes = 8 if clusters * W <= 32 * sms else 4
+    for c in CLUSTER_SIZES:
+        tile = -(-W // c)
+        if tile <= MAX_TILE and (c == 1 or (clusters * c <= 2 * sms
+                                            and tile >= MIN_TILE)):
+            return c, lanes
+    raise ValueError(f"K5 takes lines of up to {8 * MAX_TILE} points, "
+                     f"not {W}")
+
+
+class SlabSweep:
+    """K5 bound to same-shaped slabs (B, Zm, Xm) that it updates in place,
+    with their fixed masks, packed models (``pack_model``) and, for one
+    sweep axis, their ``sweep.Geometry`` and halo ``neighbours`` (see
+    ``sweep._sweep_blocks``; None: no per-line refresh).  The slabs of
+    each device go into its launches (up to ``MAX_SLABS`` each); slabs
+    on several devices meet after every launch (events), and read each
+    other through peer access.  ``run(rev, replace)`` sweeps every line:
+    one launch without neighbours, else a launch a line (each refreshing
+    the line before it) and one that refreshes the last."""
+
+    def __init__(self, blocks, fixeds, packs, axis, geometries,
+                 neighbours=None):
+        t0 = blocks[0]
+        if t0.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"K5 takes float32 or float64 fields, not "
+                            f"{t0.dtype}")
+        B, Zm, Xm = t0.shape
+        self.xs = axis == "x"
+        self.L = Xm if self.xs else Zm
+        W = Zm if self.xs else Xm
+        g0 = geometries[0]
+        totals = (g0.scan_total or self.L, g0.width_total or W)
+        for t, f, p, g in zip(blocks, fixeds, packs, geometries):
+            if (t.shape != t0.shape or f.shape != t0.shape
+                    or t.dtype != t0.dtype or not t.is_cuda
+                    or not t.is_contiguous()):
+                raise ValueError("K5 takes contiguous CUDA slabs of one "
+                                 "shape and type with fixed masks alike")
+            if (f.dtype != torch.bool or not f.is_contiguous()
+                    or f.device != t.device or p.planes.device != t.device):
+                raise ValueError("a slab's fixed mask and planes must be "
+                                 "contiguous, on its device")
+            if p.planes.shape != (1, 12, Zm, Xm) or p.planes.dtype != t.dtype:
+                raise ValueError(f"slab planes {tuple(p.planes.shape)} do "
+                                 f"not fit slabs {tuple(t0.shape)}")
+            if (g.scan_total or self.L, g.width_total or W) != totals:
+                raise ValueError("the slabs of one launch share the grid's "
+                                 "extents")
+        self.blocks = blocks
+        self.neighbours = neighbours
+        self.totals = totals
+        lib = build()
+        self.fn = (lib.alifmm_slab_sweep_f32 if t0.dtype == torch.float32
+                   else lib.alifmm_slab_sweep_f64)
+        p0 = packs[0]
+        self.tables = (p0.phase_tab.data_ptr(), p0.phase_tab.shape[1],
+                       p0.col_mode.data_ptr(), p0.col_const.data_ptr(),
+                       int(p0.has_stif), p0.dnx)
+        self.shape = (B, Zm, Xm)
+        self.groups = []
+        devices = []
+        for k, t in enumerate(blocks):
+            if t.device not in devices:
+                devices.append(t.device)
+        for dev in devices:
+            ks = [k for k, t in enumerate(blocks) if t.device == dev]
+            launches = []
+            for c in range(0, len(ks), MAX_SLABS):
+                part = ks[c: c + MAX_SLABS]
+                entries = (_SlabEntry * len(part))(*[
+                    self._entry(k, fixeds[k], packs[k], geometries[k], dev)
+                    for k in part])
+                C, G = slab_config(len(part) * B, W, _sm_count(dev))
+                launches.append((entries, len(part), C, G))
+            self.groups.append((dev, launches))
+
+    def _entry(self, k, fixed, packed, geom, dev):
+        before, after = (None, None) if self.neighbours is None \
+            else self.neighbours[k]
+        ptrs = []
+        for j in (before, after):
+            if j is None:
+                ptrs.append(None)
+                continue
+            other = self.blocks[j].device
+            if other != dev:
+                err = build().alifmm_enable_peer_access(dev.index,
+                                                        other.index)
+                if err != 0:
+                    raise RuntimeError(f"K5: {dev} cannot read {other} "
+                                       f"(CUDA error {err})")
+            ptrs.append(self.blocks[j].data_ptr())
+        return _SlabEntry(self.blocks[k].data_ptr(), fixed.data_ptr(),
+                          packed.planes.data_ptr(), packed.planes_t.data_ptr(),
+                          ptrs[0], ptrs[1], int(geom.scan_off),
+                          int(geom.width_off))
+
+    def _streams(self):
+        """Each device's current stream, read once a sweep: a refreshed
+        sweep is a launch a line, whose cost is the host's."""
+        return [torch.cuda.current_stream(dev) for dev, _ in self.groups]
+
+    def _launch(self, streams, l0, n_lines, step, refresh, replace):
+        global SLAB_LAUNCHES
+        B, Zm, Xm = self.shape
+        home = torch.cuda.current_device()
+        for (dev, launches), stream in zip(self.groups, streams):
+            if dev.index != home:
+                torch.cuda.set_device(dev)
+            for entries, n, C, G in launches:
+                err = self.fn(ctypes.addressof(entries), n, B, Zm, Xm,
+                              int(self.xs), l0, n_lines, step, refresh,
+                              int(bool(replace)), *self.totals,
+                              *self.tables, C, G, stream.cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"K5 launch failed: CUDA error {err}")
+                SLAB_LAUNCHES += 1
+        if len(streams) > 1:
+            torch.cuda.set_device(home)
+            events = [s.record_event() for s in streams]
+            for s in streams:
+                for ev in events:
+                    s.wait_event(ev)
+        elif self.groups[0][0].index != home:
+            torch.cuda.set_device(home)
+
+    def launch(self, l0, n_lines, step, refresh, replace):
+        """One launch on every device: lines l0, l0 + step, ... (n_lines),
+        after refreshing line ``refresh`` (-1: none)."""
+        self._launch(self._streams(), l0, n_lines, step, refresh, replace)
+
+    def run(self, rev, replace):
+        """One directional sweep over every line of the slabs."""
+        L = self.L
+        l0, step = (L - 1, -1) if rev else (0, 1)
+        streams = self._streams()
+        if self.neighbours is None:
+            self._launch(streams, l0, L, step, -1, replace)
+            return
+        prev = -1
+        for s in range(L):
+            i = l0 + s * step
+            self._launch(streams, i, 1, step, prev, replace)
+            prev = i
+        self._launch(streams, l0, 0, step, prev, replace)
+
+
+def slab_sweep(blocks, models, fixeds, axis, rev, replace, geometries,
+               neighbours=None, packed=None):
+    """One directional sweep over the slabs of a decomposed grid: K5 on
+    CUDA slabs (updated in place and returned), the plain twin
+    ``sweep.slab_sweep`` on CPU slabs (new slabs returned).  ``packed``:
+    the slabs' ``pack_model``, when the caller keeps them."""
+    if not blocks[0].is_cuda:
+        return sweep.slab_sweep(blocks, models, fixeds, axis, rev, replace,
+                                geometries, neighbours)
+    packed = packed or [pack_model(m) for m in models]
+    SlabSweep(blocks, fixeds, packed, axis, geometries,
+              neighbours).run(rev, replace)
+    return blocks

@@ -18,6 +18,7 @@ ignored.
 
 from __future__ import annotations
 
+import dataclasses
 import typing
 
 import numpy as np
@@ -27,10 +28,12 @@ from .. import grid as gridlib
 from . import stencils
 from .stencils import INF, OFFSETS
 
-__all__ = ["gs_pass", "solve_fixpoint", "SolveInfo", "CALLS"]
+__all__ = ["gs_pass", "solve_fixpoint", "slab_sweep", "Geometry",
+           "SolveInfo", "CALLS"]
 
-# Plain sweep passes run in this process (the kernel's wrapper counts its
-# own launches; a run on the card shows the two apart).
+# Plain sweep passes and plain slab sweeps run in this process (the
+# kernels' wrappers count their own launches; a run on the card shows the
+# two apart).
 CALLS = 0
 
 
@@ -134,39 +137,161 @@ def _graphed_line(first, consts):
     return run
 
 
-def _sweep(tt, model, fixed, axis, rev, replace, graphed=False):
-    """One directional Gauss-Seidel sweep along ``axis``; ``replace`` is a
-    bool tensor broadcasting against the source batch; ``graphed``: see
-    ``gs_pass``."""
+class Geometry(typing.NamedTuple):
+    """Where a block of a larger grid lies, along the scanned lines and
+    along their width: the global index of its first line and first width
+    point, and the grid's true extents (None: the block's own).  The
+    in-bounds masks and the edge flags of a sweep are taken in these
+    global coordinates, so that a slab of a decomposed grid keeps the
+    whole grid's boundary semantics (``_width_masks`` and
+    ``_sweep_axis``'s slab arguments in the JAX package)."""
+
+    scan_off: int = 0
+    scan_total: int | None = None
+    width_off: int = 0
+    width_total: int | None = None
+
+
+def _masks(L, W, geometry, dev):
+    """A sweep's per-line flags (L, 7) and its width masks in global
+    coordinates (see ``_line``)."""
+    g = Geometry() if geometry is None else geometry
+    L_tot = L if g.scan_total is None else g.scan_total
+    W_tot = W if g.width_total is None else g.width_total
+    iw = torch.arange(W, device=dev) + g.width_off
+    wok = {d: (iw + d >= 0) & (iw + d <= W_tot - 1) for d in (-2, -1, 0, 1, 2)}
+    il = torch.arange(L, device=dev)[:, None] + g.scan_off
+    flags = torch.cat([(il + d >= 0) & (il + d <= L_tot - 1)
+                       for d in (-2, -1, 0, 1, 2)]
+                      + [il == 0, il == L_tot - 1], dim=1)
+    return flags, wok, iw == 0, iw == W_tot - 1
+
+
+def _stacked(models, tts, geometries, L, W):
+    """Blocks on one device as one: their models with a leading block axis
+    (and unit axes for the fields' batch dims) on every per-cell field,
+    and their masks likewise, so that one ``_line`` call updates a line of
+    every block with the operations it would take alone."""
+    lead = (len(tts),) + (1,) * (tts[0].dim() - 2)
+
+    def st(name, tail):
+        return torch.stack([getattr(m, name) for m in models]).reshape(
+            lead + tail)
+    m0 = models[0]
+    model = dataclasses.replace(
+        m0, veln=st("veln", m0.veln.shape[-2:]),
+        velpn=st("velpn", m0.velpn.shape[-2:]),
+        vel_map=st("vel_map", m0.vel_map.shape[-2:]),
+        stif=st("stif", m0.stif.shape[-3:]),
+        fallback_slowness=st("fallback_slowness",
+                             m0.fallback_slowness.shape[-3:]))
+    masks = [_masks(L, W, g, tts[0].device) for g in geometries]
+    flags = torch.stack([mk[0] for mk in masks], dim=-1).reshape(
+        (L, 7) + lead + (1,))
+    wok = {d: torch.stack([mk[1][d] for mk in masks]).reshape(lead + (W,))
+           for d in (-2, -1, 0, 1, 2)}
+    first, last = (torch.stack([mk[j] for mk in masks]).reshape(lead + (W,))
+                   for j in (2, 3))
+    return model, (flags, wok, first, last)
+
+
+def _sweep_blocks(tts, models, fixeds, axis, rev, replace, graphed=False,
+                  geometries=None, neighbours=None):
+    """One directional Gauss-Seidel sweep along ``axis`` over blocks of the
+    same shape, line by line in lockstep; ``replace`` is a bool tensor
+    broadcasting against the source batch; ``graphed``: see ``gs_pass``;
+    ``geometries``: a ``Geometry`` per block (None: each block is a whole
+    grid).  The blocks are swept in a padded copy that is updated in
+    place: lines behind the current one hold this sweep's values.  Blocks
+    on one device are stacked and updated together (``_stacked``).
+
+    ``neighbours``: None, or per block the indices (before, after) of the
+    blocks beside it across the lines' width (None at the grid's edge).
+    Then, once line i of every block is updated, its two halo slots at
+    each end of the width are spliced from the neighbours' freshly
+    updated boundary points of line i (INF at the grid's edge), as the
+    JAX package's ``refresh_carry`` does, so that the next line reads the
+    values one sweep over the whole grid would have given it."""
     if axis == "x":
-        tt = tt.transpose(-1, -2)
-        fixed = fixed.transpose(-1, -2)
-    L, W = tt.shape[-2], tt.shape[-1]
-    dev = tt.device
-    work = torch.nn.functional.pad(tt, (2, 2, 2, 2), value=INF)
-    iw = torch.arange(W, device=dev)
-    wok = {d: (iw + d >= 0) & (iw + d <= W - 1) for d in (-2, -1, 0, 1, 2)}
-    wfirst, wlast = iw == 0, iw == W - 1
-    il = torch.arange(L, device=dev)[:, None]
-    flags = torch.cat([(il + d >= 0) & (il + d <= L - 1)
-                       for d in (-2, -1, 0, 1, 2)] + [il == 0, il == L - 1],
-                      dim=1)
-    consts = (replace.reshape(replace.shape + (1,)), wok, wfirst, wlast, axis,
-              model)
+        tts = [t.transpose(-1, -2) for t in tts]
+        fixeds = [f.transpose(-1, -2) for f in fixeds]
+    L, W = tts[0].shape[-2], tts[0].shape[-1]
+    if any(t.shape != tts[0].shape for t in tts):
+        raise ValueError("the blocks of one sweep must have one shape")
+    geometries = geometries or [None] * len(tts)
+    if len(tts) > 1 and len({t.device for t in tts}) == 1:
+        model, masks = _stacked(models, tts, geometries, L, W)
+        groups = [(torch.stack(tts), model, torch.stack(fixeds), masks)]
+    else:
+        groups = [(t, m, f, _masks(L, W, g, t.device))
+                  for t, m, f, g in zip(tts, models, fixeds, geometries)]
+    units = []
+    for tt, model, fixed, (flags, wok, wfirst, wlast) in groups:
+        work = torch.nn.functional.pad(tt, (2, 2, 2, 2), value=INF)
+        consts = (replace.reshape(replace.shape + (1,)).to(tt.device), wok,
+                  wfirst, wlast, axis, model)
+
+        def inputs(i, work=work, flags=flags, fixed=fixed, model=model):
+            return (work[..., i: i + 5, :], flags[i], fixed[..., i, :],
+                    _line_mats(model, axis, i))
+        units.append((work, inputs, consts))
+    works = (list(units[0][0]) if len(groups) == 1 and len(tts) > 1
+             else [u[0] for u in units])
     lines = range(L - 1, -1, -1) if rev else range(L)
-
-    def inputs(i):
-        return (work[..., i: i + 5, :], flags[i], fixed[..., i, :],
-                _line_mats(model, axis, i))
-
-    run = _graphed_line(inputs(lines[0]), consts) if graphed else None
+    runs = ([_graphed_line(inputs(lines[0]), consts)
+             for _, inputs, consts in units] if graphed else None)
     for i in lines:
-        band, fl, frow, mats = inputs(i)
-        work[..., i + 2, 2: 2 + W] = (
-            run(band, fl, frow, mats) if graphed
-            else _line(band, fl, frow, consts[0], mats, *consts[1:]))
-    out = work[..., 2:-2, 2:-2]
-    return out.transpose(-1, -2) if axis == "x" else out
+        for k, (work, inputs, consts) in enumerate(units):
+            band, fl, frow, mats = inputs(i)
+            work[..., i + 2, 2: 2 + W] = (
+                runs[k](band, fl, frow, mats) if graphed
+                else _line(band, fl, frow, consts[0], mats, *consts[1:]))
+        if neighbours is not None:
+            _refresh(works, neighbours, i + 2, W)
+    outs = [work[..., 2:-2, 2:-2] for work in works]
+    return [o.transpose(-1, -2) for o in outs] if axis == "x" else outs
+
+
+def _refresh(works, neighbours, r, W):
+    """Splice padded line ``r`` of each block's halo slots (width 0-1 and
+    W-2..W-1) from the neighbours' boundary points (W-4..W-3 of the block
+    before, 2-3 of the block after), or INF at the grid's edge."""
+    for work, (before, after) in zip(works, neighbours):
+        lo = work[..., r, 2: 4]
+        hi = work[..., r, W: W + 2]
+        if before is None:
+            lo.fill_(INF)
+        else:
+            lo.copy_(works[before][..., r, W - 2: W])
+        if after is None:
+            hi.fill_(INF)
+        else:
+            hi.copy_(works[after][..., r, 4: 6])
+
+
+def _sweep(tt, model, fixed, axis, rev, replace, graphed=False):
+    """One directional Gauss-Seidel sweep along ``axis`` over one whole
+    grid; see ``_sweep_blocks``."""
+    return _sweep_blocks([tt], [model], [fixed], axis, rev, replace,
+                         graphed)[0]
+
+
+def slab_sweep(blocks, models, fixeds, axis, rev, replace, geometries,
+               neighbours=None, graphed=False):
+    """The plain twin of the slab sweep kernel K5 (``ops/cuda_sweep
+    .slab_sweep``): one directional sweep (``axis`` "z" or "x", ``rev``,
+    min or ``replace``) over blocks of a decomposed grid, each (B, Zb, Xb)
+    with its halo rows and columns marked fixed, in global coordinates
+    (``geometries``), with the per-line halo refresh across ``neighbours``
+    (see ``_sweep_blocks``).  Returns the new blocks.  Counterpart of the
+    JAX package's ``_sweep_axis`` with its slab arguments and
+    ``halo_axis``."""
+    global CALLS
+    CALLS += 1
+    replace = torch.as_tensor(replace, device=blocks[0].device)
+    return [o.contiguous() for o in _sweep_blocks(
+        blocks, models, fixeds, axis, rev, replace, graphed, geometries,
+        neighbours)]
 
 
 def gs_pass(tt, model: gridlib.Model, fixed, replace=False, block: int = 1,
@@ -208,12 +333,15 @@ def two_phase(tt0, pass_fn, per_source, rel_tol, max_passes, min_passes,
     every source keeps its own phase, pass count and stop test, and a
     finished source stays frozen while the others continue; otherwise
     delta and scale are maxima over all sources and the batch stops
-    together.  Returns (field, SolveInfo).
+    together.  ``tt0`` may also be a list of source chunks (the sharded
+    solve), handed to ``pass_fn`` as it is, with the flags of all chunks'
+    sources in order.  Returns (field, SolveInfo).
     """
-    B = tt0.shape[0]
+    chunks = tt0 if isinstance(tt0, (list, tuple)) else [tt0]
+    B = sum(c.shape[0] for c in chunks)
     G = B if per_source else 1
     mp2 = polish_passes if max_polish_passes is None else max_polish_passes
-    npdt = torch.empty((), dtype=tt0.dtype).numpy().dtype
+    npdt = torch.empty((), dtype=chunks[0].dtype).numpy().dtype
     tol = npdt.type(rel_tol)
     floor = npdt.type(1e-30)
     k = np.zeros(G, np.int64)

@@ -281,20 +281,33 @@ def _stage_next(model, scx, scz, prev_tt, prev_bz, prev_bx, half, factor, cfg):
     return tt, bz, bx, info
 
 
-def _stage_final(model, prev_tt, prev_bz, prev_bx, cfg):
-    """Full-grid stage: inject, then one joint fixpoint over all sources."""
+def _final_inputs(model, prev_tt, prev_bz, prev_bx):
+    """The final stage's seed: the last patches injected into the whole
+    grid.  Returns (tt, fixed), (B, Z, X)."""
     B = prev_tt.shape[0]
     zero = torch.zeros(B, dtype=prev_bz.dtype, device=prev_bz.device)
-    tt, fixed = _inject(prev_tt, prev_bz, prev_bx, 3, model.shape, zero, zero,
-                        1, model.shape)
-    f_tol = cfg.rel_tol if cfg.final_rel_tol is None else cfg.final_rel_tol
-    f_pol = (cfg.polish_passes if cfg.final_polish_passes is None
-             else cfg.final_polish_passes)
+    return _inject(prev_tt, prev_bz, prev_bx, 3, model.shape, zero, zero, 1,
+                   model.shape)
+
+
+def _final_budget(cfg):
+    """The final stage's two-phase budget: rel_tol, max_passes,
+    polish_passes and max_polish_passes from ``cfg``."""
+    return dict(
+        rel_tol=cfg.rel_tol if cfg.final_rel_tol is None else cfg.final_rel_tol,
+        max_passes=cfg.final_max_passes,
+        polish_passes=(cfg.polish_passes if cfg.final_polish_passes is None
+                       else cfg.final_polish_passes),
+        max_polish_passes=cfg.final_max_polish)
+
+
+def _stage_final(model, prev_tt, prev_bz, prev_bx, cfg):
+    """Full-grid stage: inject, then one joint fixpoint over all sources."""
+    tt, fixed = _final_inputs(model, prev_tt, prev_bz, prev_bx)
     return cuda_sweep.solve_fixpoint(
-        tt, model, fixed, rel_tol=f_tol, max_passes=cfg.final_max_passes,
-        polish_passes=f_pol, max_polish_passes=cfg.final_max_polish,
-        inner=cfg.sweep_inner, use_ali=cfg.use_ali,
-        phase1_use_ali=cfg.phase1_use_ali, polish_use_fd=cfg.final_polish_fd,
+        tt, model, fixed, **_final_budget(cfg), inner=cfg.sweep_inner,
+        use_ali=cfg.use_ali, phase1_use_ali=cfg.phase1_use_ali,
+        polish_use_fd=cfg.final_polish_fd,
     )
 
 

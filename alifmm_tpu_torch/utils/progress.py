@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import sys
 
-__all__ = ["progress_bar", "auto_bar"]
+__all__ = ["progress_bar", "stage_reporter", "auto_bar"]
 
 
 def _disabled() -> bool:
@@ -44,6 +44,17 @@ def progress_bar(total: int, desc: str):
             pass
 
     return _Noop()
+
+
+def stage_reporter(bar):
+    """Adapt a ``progress_bar`` to ``solve_ttf``'s ``progress`` callback:
+    one tick a stage, the stage's name and seconds as the postfix."""
+
+    def cb(stage, total, name, seconds):
+        bar.set_postfix_str(f"{name} {seconds:.2f}s")
+        bar.update(1)
+
+    return cb
 
 
 def auto_bar(desc: str):

@@ -9,7 +9,8 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
 1. device check: a CUDA device must be present; prints nvidia-smi's name
    and power limit;
 2. builds the kernels from ``alifmm_tpu_torch/csrc`` with nvcc, one
-   compiler per source, all at once: the sweep kernel K1 (``sweep.cu``),
+   compiler per source, all at once: the sweep kernel K1 and the slab
+   sweep K5 (``sweep.cu``),
    the ray kernels K2 and K3 (``rays.cu``) and the descent march K4
    (``descent.cu``); prints ptxas' registers and spills per kernel;
 3. holds K1 against its plain PyTorch twin on the card, in float64 and
@@ -131,7 +132,33 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    receiver, every auto ray arrived unless neither the descent nor the
    search lands it (as in the JAX package); K4 against its twin on the qSV
    fields; (11d) K1 timed warm at the qSV weld's final shape beside the
-   qP weld's time and its bound.
+   qP weld's time and its bound;
+12. the sharded solves (``parallel/shard``, ``parallel/multihost``) on
+   meshes of virtual ranks of the one card (four z slabs, 2 x 2 z and x
+   blocks, three z slabs, four source ranks): (12a) the slab sweep kernel
+   K5 against its graphed twin ``sweep.slab_sweep``, max abs 0, float64
+   and float32, on ``HALO_CASES`` (48 x 56 on four slabs and on 2 x 2
+   blocks, and both with padded rows or columns): every directional sweep
+   of a halo pass as a bare launch, min and replace, a pass through
+   ``_halo_jacobi_block`` or ``_halo_block2d``, and a sweep through the
+   wrapper ``cuda_sweep.slab_sweep``; (12b) ``solve_halo_sharded`` with a
+   fixed budget against K1's single-device ``solve_fixpoint`` with the
+   matched budget, max abs 0, on 48 x 56 (four slabs, 2 x 2) and 50 x 56
+   (three slabs, a padded row) in both types, and on the weld's final
+   stage (the injected state of its 31 sources at 424 x 500, float32) on
+   four slabs and 2 x 2; (12c) ``solve_ttf_halo`` on the weld (its
+   budgets, residual-driven) on four slabs and 2 x 2 against the
+   single-device solve, then K5 at the weld's final shape: one slab
+   z-sweep against its twin and timed beside its bound, a one-line launch
+   of the refreshed x-sweep, a halo round of each layout beside K1's
+   pass, the exchange copies and bytes a round; (12d)
+   ``solve_ttf_sharded`` and ``trace_rays_sharded`` on four source ranks
+   against the unsharded weld slice bit for bit, directly and in a
+   one-rank NCCL group (``multihost.init`` on tcp://localhost, left at
+   the end); (12e) the weld slice through ``ALI_FMM(grid_mesh=...)`` (four
+   z slabs), a warm-up call and a timed one with every count set to 0
+   just before it (K1, K5, one K2 and one K3 launch, no plain pass), its
+   ray times and fields against the plain facade's.
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``.
@@ -929,6 +956,7 @@ def reset_counts():
     from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep, sweep
 
     cuda_sweep.LAUNCHES = 0
+    cuda_sweep.SLAB_LAUNCHES = 0
     sweep.CALLS = 0
     rays.PLAIN_STEPS = 0
     for name in cuda_rays.LAUNCHES:
@@ -939,7 +967,8 @@ def read_counts():
     from alifmm_tpu_torch import rays
     from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep, sweep
 
-    return dict(sweep_pass=cuda_sweep.LAUNCHES, plain_passes=sweep.CALLS,
+    return dict(sweep_pass=cuda_sweep.LAUNCHES,
+                slab_sweep=cuda_sweep.SLAB_LAUNCHES, plain_passes=sweep.CALLS,
                 plain_steps=rays.PLAIN_STEPS, **cuda_rays.LAUNCHES)
 
 
@@ -3185,6 +3214,426 @@ def phase_qsv_slice(inputs, qp_times, qp_final_ms, device):
     return res
 
 
+
+# --------------------------------------------------------------------- #
+# Phase 12: the sharded solves (parallel/shard, parallel/multihost) and
+# the slab sweep kernel K5
+# --------------------------------------------------------------------- #
+
+def virtual_mesh(device, kind):
+    """Meshes of virtual ranks on one card: "1d" four z slabs ("gz"),
+    "2d" 2 x 2 z and x blocks ("gz", "gx"), "3" three z slabs, "src"
+    four source ranks.  Returns (mesh, axis)."""
+    from alifmm_tpu_torch.parallel import Mesh
+
+    if kind == "2d":
+        arr = np.empty((2, 2), dtype=object)
+        arr.fill(device)
+        return Mesh(arr, ("gz", "gx")), ("gz", "gx")
+    n, name = {"1d": (4, "gz"), "3": (3, "gz"), "src": (4, "src")}[kind]
+    return Mesh([device] * n, (name,)), name
+
+
+def padded_case(Z, X, rows, cols, dtype, device, B=3):
+    """A seeded (Z, X) model and fields padded by ``rows`` and ``cols``
+    with fixed INF points and edge materials, as solve_ttf_halo pads
+    them: (tt, model, fixed)."""
+    import torch.nn.functional as F
+
+    from alifmm_tpu_torch.ops.stencils import INF
+    from alifmm_tpu_torch.parallel import shard
+
+    model = random_model(Z, X, dtype, device, seed=Z * 1000 + X)
+    tt, fixed = seeded((Z, X), B, dtype, device)
+    return (F.pad(tt, (0, cols, 0, rows), value=INF),
+            shard._edge_pad(model, rows, cols),
+            F.pad(fixed, (0, cols, 0, rows), value=True))
+
+
+# (mesh, Z, X, padded rows, padded columns) of phase 12a's cases
+HALO_CASES = {
+    "1D 4 slabs 48x56": ("1d", 48, 56, 0, 0),
+    "2D 2x2 48x56": ("2d", 48, 56, 0, 0),
+    "1D 4 slabs 46x56 padded to 48": ("1d", 46, 56, 2, 0),
+    "2D 2x2 46x54 padded to 48x56": ("2d", 46, 54, 2, 2),
+}
+
+
+def halo_pair(tt, model, fixed, mesh, axis, z_true=None, x_true=None):
+    """Two halo states of the same inputs: the plain twin's (graphed) and
+    K5's, after their first halo exchange."""
+    from alifmm_tpu_torch.parallel import shard
+
+    grid, two_d = shard._halo_grid(mesh, axis)
+    pair = [shard._Halo(tt, model, fixed, grid, two_d, z_true, x_true,
+                        plain=plain) for plain in (True, False)]
+    for h in pair:
+        if two_d:
+            h.exchange_x()
+        h.exchange_z()
+    return pair
+
+
+def halo_diff(hp, hk, what):
+    """K5's blocks against the twin's, every point, halos included: the
+    largest absolute difference, which must be 0."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for k in hp.keys:
+        a, b = hk.t[k].double(), hp.t[k].double()
+        check(torch.equal(torch.isfinite(a), torch.isfinite(b)),
+              f"{what}: K5 and its twin disagree on which points are finite")
+        worst = max(worst, float((a - b).abs().max()))
+    check(worst == 0.0, f"{what}: K5 differs from its twin (max abs "
+          f"{worst:.3e})")
+    return worst
+
+
+def check_halo_case(name, dtype, device):
+    """(12a) K5 against its graphed twin, max abs 0: every directional
+    sweep of a halo pass as a bare launch (each z slab, each line of
+    blocks), min and replace, then one pass through _halo_jacobi_block or
+    _halo_block2d; and one sweep through the wrapper cuda_sweep
+    .slab_sweep."""
+    from alifmm_tpu_torch.ops import cuda_sweep, sweep
+    from alifmm_tpu_torch.parallel import shard
+
+    kind, Z, X, rows, cols = HALO_CASES[name]
+    mesh, axis = virtual_mesh(device, kind)
+    tt, model, fixed = padded_case(Z, X, rows, cols, dtype, device)
+    hp, hk = halo_pair(tt, model, fixed, mesh, axis,
+                       Z if rows else None, X if cols else None)
+    dname = str(dtype).replace("torch.", "")
+    two_d = hp.two_d
+    t0 = time.perf_counter()
+    n = 0
+    for replace in (False, True):
+        mode = "replace" if replace else "min"
+        for axis_, count in (("z", hp.nz), ("x", hp.nx if two_d else 1)):
+            for rev in (False, True):
+                for s in (range(count - 1, -1, -1) if rev else range(count)):
+                    if axis_ == "z":
+                        keys = ([(s, ix) for ix in range(hp.nx)] if two_d
+                                else [(s, 0)])
+                    else:
+                        keys = ([(iz, s) for iz in range(hp.nz)] if two_d
+                                else [(iz, 0) for iz in range(hp.nz)])
+                    refresh = two_d or axis_ == "x"
+                    for h in (hp, hk):
+                        h.sweep(keys, axis_, rev, replace, refresh)
+                    halo_diff(hp, hk, f"{name} {dname} {axis_} rev={rev} "
+                              f"{mode} blocks {keys}")
+                    n += 1
+        block = shard._halo_block2d if two_d else shard._halo_jacobi_block
+        for h in (hp, hk):
+            block(h, 1, replace)
+        halo_diff(hp, hk, f"{name} {dname} {block.__name__} {mode}")
+    k = (1, 0)
+    geom = [hp.geometry(k, "z")]
+    new_p = sweep.slab_sweep([hp.t[k]], [hp.m[k]], [hp.f[k]], "z", False,
+                             False, geom, graphed=True)
+    new_k = cuda_sweep.slab_sweep([hk.t[k]], [hk.m[k]], [hk.f[k]], "z", False,
+                                  False, geom)
+    torch.cuda.synchronize()
+    check(torch.equal(new_k[0], new_p[0]),
+          f"{name} {dname}: cuda_sweep.slab_sweep differs from its twin")
+    log(f"  {name} {dname}: {n} bare sweeps, 2 halo passes and one wrapper "
+        f"sweep equal to the twin, max abs 0 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return 0.0
+
+
+def phase_halo_kernel(device):
+    """(12a) K5 against its twin on every HALO_CASES case, both types."""
+    for dtype in (torch.float64, torch.float32):
+        for name in HALO_CASES:
+            check_halo_case(name, dtype, device)
+    return 0.0
+
+
+def phase_halo_fixed(inputs, device):
+    """(12b) solve_halo_sharded with a fixed budget against K1's
+    single-device solve_fixpoint with the matched budget (rel_tol 0: every
+    phase-1 pass runs), max abs 0: 48 x 56 (three sources) on the 4-slab,
+    2 x 2 and 3-slab meshes (the last 50 x 56, padded to 51 rows) in float64
+    and float32; the weld's final stage (its injected state, 31 x 424 x
+    500, float32, 3 + 2 passes) on the 4-slab and 2 x 2 meshes."""
+    from alifmm_tpu_torch.ops import cuda_sweep
+    from alifmm_tpu_torch.parallel import shard
+
+    out = {}
+
+    def one(what, tt, model, fixed, kind, n_outer, polish, rows=0):
+        mesh, axis = virtual_mesh(device, kind)
+        t0 = time.perf_counter()
+        want, info = cuda_sweep.solve_fixpoint(
+            tt, model, fixed, rel_tol=0.0, max_passes=n_outer,
+            polish_passes=polish)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if rows:
+            import torch.nn.functional as F
+
+            from alifmm_tpu_torch.ops.stencils import INF
+
+            Z = tt.shape[-2]
+            got = shard.solve_halo_sharded(
+                F.pad(tt, (0, 0, 0, rows), value=INF),
+                shard._edge_pad(model, rows, 0),
+                F.pad(fixed, (0, 0, 0, rows), value=True), mesh, axis=axis,
+                n_outer=n_outer, n_inner=1, polish=polish, z_true=Z)[..., :Z, :]
+        else:
+            got = shard.solve_halo_sharded(tt, model, fixed, mesh, axis=axis,
+                                           n_outer=n_outer, n_inner=1,
+                                           polish=polish)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}")
+        e = float((got.double() - want.double()).abs().max())
+        log(f"  {what} on {kind}: max abs {e:.3e} against K1 ({info.passes} "
+            f"phase-1 passes; K1 {t1 - t0:.3f} s, halo {t2 - t1:.3f} s)")
+        check(e == 0.0, f"{what} on {kind}: the halo solve differs from K1's")
+        out[f"{what} {kind}"] = dict(k1_s=t1 - t0, halo_s=t2 - t1)
+
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        model = small_model(dtype, device)
+        tt, fixed = seeded(model.shape, 3, dtype, device)
+        for kind in ("1d", "2d"):
+            one(f"48x56 {dname}", tt, model, fixed, kind, 6, 2)
+        model = random_model(50, 56, dtype, device, seed=50056)
+        tt, fixed = seeded(model.shape, 3, dtype, device)
+        one(f"50x56 padded to 51 {dname}", tt, model, fixed, "3", 6, 2,
+            rows=1)
+    name, model, tt0, fixed = stage_inputs(inputs)[-1]
+    for kind in ("1d", "2d"):
+        one(f"weld final stage {name}", tt0, model, fixed, kind, 3, 2)
+    return out
+
+
+def slab_bound(h, k):
+    """K5's bound for one sweep of block ``k``: the operations of its
+    points that are not fixed (``update_ops`` by path), and its field
+    read and written once, its fixed mask and 12 material planes read
+    once."""
+    packed = h.packs[k]
+    fixed = h.f[k]
+    ops = int((update_ops(packed) * ~fixed).sum())
+    item = h.t[k].element_size()
+    nbytes = (2 * h.t[k].numel() * item + fixed.numel()
+              + packed.planes.numel() * item)
+    return roofline(ops, nbytes)
+
+
+def phase_halo_weld(inputs, ttfs, k1_ms, device):
+    """(12c) solve_ttf_halo on the weld (weld budgets, residual-driven) on
+    the 4-slab and the 2 x 2 mesh: passes, converged, the largest
+    difference from the single-device staged solve, finite fields, K5
+    launches; then on the weld's final-stage input: one K5 z-sweep of a
+    slab against its graphed twin (max abs 0) and timed beside its bound
+    and the twin, a one-line launch of the refreshed x-sweep, one halo
+    round of each layout beside K1's pass, and the exchange copies and
+    bytes a round."""
+    from alifmm_tpu_torch import solver
+    from alifmm_tpu_torch.ops import cuda_sweep
+    from alifmm_tpu_torch.parallel import shard
+
+    model, scx, scz = inputs[:3]
+    cfg = solver.SolveConfig(**SOLVE_KW)
+    tol = SOLVE_KW["final_rel_tol"]
+    out = {}
+    scale = float(ttfs.max())
+    for kind in ("1d", "2d"):
+        mesh, axis = virtual_mesh(device, kind)
+        shard.solve_ttf_halo(model, scx, scz, mesh, axis=axis, cfg=cfg)
+        cuda_sweep.SLAB_LAUNCHES = 0
+        t0 = time.perf_counter()
+        got, info = shard.solve_ttf_halo(model, scx, scz, mesh, axis=axis,
+                                         cfg=cfg, return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cuda_sweep.SLAB_LAUNCHES
+        check(got.shape == ttfs.shape, f"halo weld shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), "halo weld fields not finite")
+        diff = float((got - ttfs).abs().max())
+        abs_e, rel_e = rel_err(got, ttfs)
+        log(f"  solve_ttf_halo on {kind}: {wall:.4f} s warm, final passes "
+            f"{info.passes} converged {info.converged}, K5 launches "
+            f"{launches}; against the single-device solve max abs "
+            f"{abs_e:.3e} (the residual stop allows {tol} x {scale:.3e}), "
+            f"max rel {rel_e:.3e}")
+        check(diff <= tol * scale, f"halo weld on {kind} differs from the "
+              f"single-device solve by {diff:.3e}")
+        out[kind] = dict(wall=wall, passes=info.passes,
+                         converged=info.converged, launches=launches,
+                         max_abs=abs_e, max_rel=rel_e)
+    # K5 at the weld's final shape
+    name, model, tt0, fixed = stage_inputs(inputs)[-1]
+    mesh, axis = virtual_mesh(device, "1d")
+    hp, hk = halo_pair(tt0, model, fixed, mesh, axis)
+    k = (1, 0)
+    ms_twin, _ = time_host(lambda: hp.sweep([k], "z", False, False, False))
+    hk.sweep([k], "z", False, False, False)
+    check(torch.equal(hk.t[k], hp.t[k]),
+          "K5's slab z-sweep at the weld differs from its twin")
+    ms = time_events(lambda: hk.sweep([k], "z", False, False, False), 5)
+    bound, by = slab_bound(hk, k)
+    lines = hk.t[k].shape[-2]
+    log(f"  K5 one z-sweep of slab 1 ({tuple(hk.t[k].shape)}, {lines} "
+        f"lines) {ms:.4f} ms ({ms / lines * 1e3:.2f} us a line), bound "
+        f"{bound:.4f} ms ({by}), share {bound / ms:.4f}; graphed twin "
+        f"{ms_twin:.1f} ms, equal bit for bit")
+    slabs = [(iz, 0) for iz in range(hk.nz)]
+    hk.sweep(slabs, "x", False, False, True)
+    bound_x = hk.kernels[tuple(slabs), "x"]
+    line_ms = time_events(lambda: bound_x.launch(250, 1, 1, 249, False), 50)
+    log(f"  K5 one line of the refreshed x-sweep, 4 slabs x 31 sources: "
+        f"{line_ms * 1e3:.2f} us a launch")
+    rounds = {}
+    for kind in ("1d", "2d"):
+        mesh, axis = virtual_mesh(device, kind)
+        grid, two_d = shard._halo_grid(mesh, axis)
+        h = shard._Halo(tt0, model, fixed, grid, two_d, None, None)
+        block = shard._halo_block2d if two_d else shard._halo_jacobi_block
+        block(h, 1, False)
+        c0, b0, l0 = h.copies, h.copy_bytes, cuda_sweep.SLAB_LAUNCHES
+        block(h, 1, False)
+        copies, nbytes = h.copies - c0, h.copy_bytes - b0
+        n_launch = cuda_sweep.SLAB_LAUNCHES - l0
+        r_ms = time_events(lambda: block(h, 1, False), 3)
+        log(f"  halo round on {kind}: {r_ms:.3f} ms ({r_ms / k1_ms:.2f} x "
+            f"K1's {k1_ms:.3f} ms pass), {n_launch} K5 launches, {copies} "
+            f"exchange copies, {nbytes} bytes")
+        rounds[kind] = dict(ms=r_ms, k5_launches=n_launch, copies=copies,
+                            copy_bytes=nbytes)
+    return dict(solves=out, slab_sweep=dict(
+        ms=ms, plain_ms=ms_twin, bound_ms=bound, bound_by=by, lines=lines,
+        us_per_line=ms / lines * 1e3, shape=list(hk.t[k].shape)),
+        us_per_line_launch=line_ms * 1e3, rounds=rounds, k1_pass_ms=k1_ms)
+
+
+def free_port():
+    """A free TCP port on localhost (for the one-rank process group)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded_weld(inputs, device):
+    """(12d) solve_ttf_sharded (4 virtual source ranks) and
+    trace_rays_sharded (961 rays) against the unsharded weld slice, bit
+    for bit; then the same through multihost.init on a one-rank NCCL
+    group (tcp://localhost), whose collectives (the final stage's
+    all-reduce a pass, the all-gathers) then run, left at the end."""
+    from alifmm_tpu_torch import rays, solver, weld_data
+    from alifmm_tpu_torch.parallel import multihost, shard
+
+    model, scx, scz, src_xy, rec_xy, tidx = inputs
+    cfg = solver.SolveConfig(**SOLVE_KW)
+    mesh, axis = virtual_mesh(device, "src")
+    want_f = solver.solve_ttf(model, scx, scz, 1, cfg)
+    want_r = rays.trace_rays(model, want_f, tidx, src_xy, rec_xy,
+                             weld_data.SUBGRID, mode="interp", **RAY_OPTS)
+    sx, sz = scx.cpu().numpy(), scz.cpu().numpy()
+    out = {}
+
+    def run(what):
+        t0 = time.perf_counter()
+        got_f = shard.solve_ttf_sharded(model, sx, sz, mesh, axis=axis,
+                                        cfg=cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got_r = shard.trace_rays_sharded(model, want_f, tidx, src_xy, rec_xy,
+                                         weld_data.SUBGRID, mesh, axis=axis,
+                                         **RAY_OPTS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(torch.equal(got_f, want_f),
+              f"{what}: solve_ttf_sharded differs from the unsharded solve")
+        for a, b in zip(got_r, want_r):
+            check(torch.equal(a, b), f"{what}: trace_rays_sharded differs "
+                  f"from the unsharded trace")
+        log(f"  {what}: fields and rays equal to the unsharded slice bit for "
+            f"bit (solve {t1 - t0:.4f} s, rays {t2 - t1:.4f} s)")
+        out[what] = dict(solve=t1 - t0, rays=t2 - t1)
+
+    run("4 source ranks")
+    port = free_port()
+    check(multihost.init(f"tcp://localhost:{port}", 1, 0),
+          "multihost.init did not set up the group")
+    try:
+        log(f"  {multihost.process_summary()}")
+        run("4 source ranks in a one-rank NCCL group")
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def phase_halo_facade(device):
+    """(12e) ALI_FMM(grid_mesh=4 virtual z slabs) on the weld slice against
+    the plain facade: a warm-up call each, then a timed call with every
+    count set to 0 just before it (this slice's main path: K1 for the
+    patches, K5 for the final stage, one K2 and one K3, no plain pass);
+    the ray times and the fields (``update``) within the residual stop of
+    the plain facade's."""
+    import alifmm_tpu_torch
+    from alifmm_tpu_torch import weld_data
+
+    alifmm_tpu_torch.tqdm_disable = True
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    mesh, axis = virtual_mesh(device, "1d")
+    fms = {}
+    for key, kw in (("mesh", dict(grid_mesh=mesh, grid_axis=axis)),
+                    ("plain", {})):
+        fms[key] = alifmm_tpu_torch.ALI_FMM(
+            veln, velpn, vel_map, sx, sy, stif_den=stif, dnx=dnx,
+            ray_opts=RAY_OPTS, solve_opts=SOLVE_KW, **kw)
+
+    def call(fm):
+        t0 = time.perf_counter()
+        out = fm.find_all_TTF_rays_parallel(veln, velpn, vel_map,
+                                            stif_den=stif, trans_pairs=pairs,
+                                            n_threads=8)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    walls = {}
+    for key in ("plain", "mesh"):
+        call(fms[key])
+        if key == "mesh":
+            reset_counts()
+        tmat, walls[key] = call(fms[key])
+        if key == "mesh":
+            counts = read_counts()
+            t_mesh = tmat
+        else:
+            t_plain = tmat
+    log(f"  facade with grid_mesh: {walls['mesh']:.4f} s warm (plain facade "
+        f"{walls['plain']:.4f} s); launches and plain-twin counts: {counts}")
+    check(counts["slab_sweep"] > 0, "the facade with grid_mesh launched no K5")
+    check_counts(counts, "the facade with grid_mesh")
+    traced = t_plain > 0
+    check(np.array_equal(t_mesh > 0, traced) and bool(np.isfinite(t_mesh).all()),
+          "the facade with grid_mesh traced other pairs")
+    rel_t = float(np.max(np.abs(t_mesh[traced] - t_plain[traced])
+                         / t_plain[traced]))
+    f_mesh = fms["mesh"].update(veln, velpn, vel_map, stif_den=stif)
+    f_plain = fms["plain"].update(veln, velpn, vel_map, stif_den=stif)
+    tol = SOLVE_KW["final_rel_tol"]
+    d_f = float(np.max(np.abs(f_mesh - f_plain)))
+    scale = float(f_plain.max())
+    log(f"  facade with grid_mesh against the plain facade: ray times max "
+        f"rel {rel_t:.3e}, fields max abs {d_f:.3e} (the residual stop "
+        f"allows {tol} x {scale:.3e})")
+    check(d_f <= tol * scale and rel_t <= tol,
+          "the facade with grid_mesh differs from the plain facade beyond "
+          "the residual stop")
+    return dict(wall=walls["mesh"], plain_wall=walls["plain"],
+                counts=counts, times_max_rel=rel_t, fields_max_abs=d_f)
+
+
 SCORER_NAMES = {0: "simpson3", 1: "simpson5", 2: "walk", 3: "exact"}
 
 
@@ -3233,7 +3682,7 @@ def build_kernels():
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         jobs = [pool.submit(timed, b) for b in builds]
         secs = [job.result() for job in jobs]
-    log(f"[2] K1 (sweep.cu), K2 and K3 (rays.cu) and K4 (descent.cu) built "
+    log(f"[2] K1 and K5 (sweep.cu), K2 and K3 (rays.cu) and K4 (descent.cu) built "
         f"in {time.perf_counter() - t0:.2f} s, at once (each: "
         + ", ".join(f"{n} {t:.2f} s" for n, t in
                     zip(("sweep.cu", "rays.cu", "descent.cu"), secs)) + ")")
@@ -3369,6 +3818,23 @@ def main():
         f"{fine['exact_rays']:.4f} s; grid against interp ray times max rel "
         f"{fine['gap_max']:.4e} median {fine['gap_median']:.4e}")
 
+    log("[12] the sharded solves: K5 (the slab sweep) against its twin "
+        "(12a), the fixed-budget halo solve against K1 (12b), "
+        "solve_ttf_halo at the weld (12c), source sharding and a one-rank "
+        "NCCL group (12d), the facade with grid_mesh (12e)")
+    halo_worst = phase_halo_kernel(device)
+    log("[12b] solve_halo_sharded with a fixed budget against K1's "
+        "solve_fixpoint")
+    halo_fixed = phase_halo_fixed(inputs, device)
+    log("[12c] solve_ttf_halo at the weld (4 slabs, 2 x 2 blocks), and K5 "
+        "timed at the weld's final shape")
+    halo_weld = phase_halo_weld(inputs, ttfs, final["ms"], device)
+    log("[12d] solve_ttf_sharded and trace_rays_sharded at the weld, "
+        "directly and in a one-rank NCCL group")
+    sharded = phase_sharded_weld(inputs, device)
+    log("[12e] the weld slice through ALI_FMM(grid_mesh=4 virtual z slabs)")
+    halo_facade = phase_halo_facade(device)
+
     check("jax" not in sys.modules, "jax was imported")
     kernels = [{
         "name": "K1 sweep pass",
@@ -3453,6 +3919,31 @@ def main():
         "fmc_slice": dict(tracers=fmc["tracers"], gaps=fmc["gaps"],
                           flagged=fmc["flagged"]),
         "profiles": profiles,
+    })
+    s5 = halo_weld["slab_sweep"]
+    kernels.append({
+        "name": "K5 slab sweep",
+        "route": "cuda",
+        "source": "alifmm_tpu_torch/csrc/sweep.cu",
+        "replaces": "alifmm_tpu/ops/sweep.py:101",
+        "also_replaces": "alifmm_tpu/parallel/shard.py:302, :403 (the "
+                         "sweeps of _halo_jacobi_block and _halo_block2d)",
+        "launches": halo_facade["counts"]["slab_sweep"],
+        "max_abs_err": halo_worst,
+        **{k: s5[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "timed": "one z-sweep of a slab of the weld's final stage",
+        "slab_shape": s5["shape"],
+        "us_per_line": s5["us_per_line"],
+        "us_per_line_launch": halo_weld["us_per_line_launch"],
+        "rounds": halo_weld["rounds"],
+        "k1_pass_ms": halo_weld["k1_pass_ms"],
+        "solve_ttf_halo": halo_weld["solves"],
+        "fixed_budget": halo_fixed,
+        "sharded": sharded,
+        "facade": halo_facade,
+        "registers": {k: v[0] for k, v in regs.items()
+                      if "slab_sweep_kernel" in k},
     })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -333,13 +333,32 @@ def test_update_parallel_low_mem_writes_fields(world, tmp_path, monkeypatch):
 @pytest.mark.parametrize("kw, where", [
     (dict(grid_mesh=object()), "init"),
 ])
-def test_waiting_modes_raise_not_implemented(world, kw, where):
+def test_waiting_modes_raise_not_implemented(world, kw, where, monkeypatch):
+    """No mode of the facade waits any more.  ``grid_mesh``, which raised
+    NotImplementedError at init until the sharded solves were ported,
+    now routes every field solve to parallel/shard.solve_ttf_halo with
+    the mesh and the axis (the routing only: the halo solve itself is
+    held to the JAX package in tests/test_torch_parallel.py)."""
+    from alifmm_tpu_torch.parallel import shard
+
+    seen = []
+
+    def halo(model, scx, scz, mesh, axis, subgrid_size, cfg):
+        seen.append((mesh, axis, subgrid_size, cfg))
+        return torch.zeros((len(scx),) + model.shape, dtype=model.dtype)
+
+    monkeypatch.setattr(shard, "solve_ttf_halo", halo)
     args = (world["veln"], world["velpn"], world["vel_map"], world["sx"],
             world["sy"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        f = alifmm_tpu_torch.ALI_FMM(*args, device="cpu", **kw)
-        assert where == "call"
-        f.find_all_TTF_rays(*_model_args(world))
+    # a budget of its own, so the module's shared solves do not answer
+    opts = dict(patch_max_passes=1, final_max_passes=1)
+    f = alifmm_tpu_torch.ALI_FMM(*args, device="cpu", grid_axis="gz",
+                                 solve_opts=opts, **kw)
+    assert where == "init"
+    out = f.update(*_model_args(world))
+    assert out.shape == (len(world["sx"]),) + SHAPE and not out.any()
+    assert seen == [(kw["grid_mesh"], "gz", 1,
+                     tsolver.SolveConfig(**opts))]
 
 
 def test_default_device_needs_a_card(world):
