@@ -75,7 +75,8 @@
 // Christoffel solve (velpn == 0), as grid.phase_velocity_at evaluates it.
 //
 // K5, the slab sweep of the halo solves, follows K1 in this file and
-// shares its per-point device functions (see its own note below).
+// shares its per-point device functions and its line step (see its own
+// note below).
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -909,32 +910,47 @@ int launch(const void* tt_in, void* tt_out, void* scratch, const void* fixed,
 // 2D mesh, two halo columns) on each side, marked fixed: the halos are
 // read as data and never updated.  One launch runs one direction (z or x,
 // forward or reverse, min or replace) over a range of lines of every slab
-// in its table (up to kMaxSlabs; the slabs of one device), a cluster of C
-// CTAs per (slab, source), each CTA a width tile.  A point's in-bounds
-// masks and edge flags come from its global coordinates (the slab's
-// offsets) against the true grid's extents, so INF lies only beyond the
-// true grid and past the slab's own ends.  Each point goes through K1's
-// device functions (candidates<T, G>, with the first-wins selections, and
-// finish), so it takes the same operations as in K1 and in the twin.
+// in its table (up to kMaxSlabs; the slabs of one device).  A point's
+// in-bounds masks and edge flags come from its global coordinates (the
+// slab's offsets) against the true grid's extents, so INF lies only
+// beyond the true grid and past the slab's own ends.  Each point goes
+// through K1's device functions (candidates<T, G>, with the first-wins
+// selections, and finish), so it takes the same operations as in K1 and
+// in the twin.
 //
-// The field is updated in place.  A line step loads the five-line band of
-// its tile (two width points beyond it on each side) from global memory
-// into shared memory, meets the cluster (no CTA writes the line before
-// every CTA has read its old values), computes and stores the new values
-// of its non-fixed points, and meets the cluster again (the next line
-// reads them).  `refresh` >= 0 first splices that line's halo slots from
-// the slabs before and after the slab across the width (their points
-// W-4, W-3 and 2, 3, written by an earlier launch; INF at the grid's
-// edge), read through the table's pointers: the halo solves launch K5
-// once a line across the slabs whose boundaries the line crosses, each
-// launch refreshing the line the previous one swept.
+// The line step is K1's: a ring of the five lines around the current one
+// in shared memory, one new line entering a step (read a step ahead, with
+// the next line's fixed mask; its materials by cp.async), the tile-edge
+// columns of each new line pushed into the neighbouring tiles through
+// distributed shared memory, one cluster barrier a line.  The field is
+// updated in place: the line read ahead has not been written in this
+// sweep, and one barrier after the first band's load keeps every CTA's
+// copy of the first line old.
+//
+// A cluster covers a line of `nb` blocks across the width, `c` CTAs (width
+// tiles) a block: CTA rank r takes block r / c and tile r % c.  With
+// `link` the blocks are neighbours, and a block's halo slots across the
+// width (points 0, 1 and W-2, W-1 of each line) hold the block before's
+// points W-4, W-3 and the block after's 2, 3 (INF at the grid's edge), as
+// the twin's refresh splices them after every line: once a line is
+// finished, the CTAs holding those points push them into the slot
+// buffers (and tile halos) of the neighbouring block's CTAs, and the
+// slots' owners also store them to global memory, line by line, so that
+// the blocks equal the twin's point for point, halos included.  So one
+// launch sweeps every line of a refreshed sweep whose blocks share one
+// device and fit one cluster (nb x c <= kMaxCluster).  Where they do not
+// (blocks on several cards, more than 8 on one), `refresh` >= 0 keeps the
+// per-line schedule: a launch a line, each first splicing the previous
+// line's slots from the neighbouring slabs' memory through the table's
+// pointers, and a last launch (n_lines = 0) that splices the last line.
 //
 // What bounds it: the same local update as K1's (about 1,000 operations a
-// point), so operations; but every line step is two cluster barriers and
-// a band read from L2, and a one-line launch pays the launch itself.  No
-// delta or scale here: a round's delta and scale are one reduction over
-// the slab interiors (ops/cuda_sweep.py).  Making it fast (a line block
-// with redundant halo rows, or one launch a sweep) is later work.
+// point), so operations, and like K1 the chain of dependent line steps
+// (about 5.5 us a line at the weld's final stage on the H100, as K1's);
+// a sweep is one launch of L line steps, one cluster barrier each,
+// except in the per-line schedule, where the host's launch (about 13 us)
+// is the step.  No delta or scale here: a round's delta and scale are
+// one reduction over the slab interiors (ops/cuda_sweep.py).
 
 constexpr int kMaxSlabs = 16;
 
@@ -955,14 +971,15 @@ struct SlabArgs {
   Tables tb;
   T dnx;
   int n_slabs, B, Zm, Xm, xs, l0, n_lines, step, refresh, replace;
-  int scan_total, width_total, C, tile;
+  int scan_total, width_total, nb, link, C, tile;
 };
 
+// Shared memory of one K5 CTA: K1's, less the reduction, plus the slots.
 template <typename T>
 __host__ __device__ inline size_t slab_smem_bytes(int tile) {
-  return (5 * (size_t)(tile + 4) + 7 * (size_t)tile
-          + N_PLANES * (size_t)tile) * sizeof(T)
-       + (kTabInts + (size_t)tile) * sizeof(int) + (size_t)tile;
+  return (10 * (size_t)(tile + 4) + 16 + 8 * (size_t)tile
+          + 2 * N_PLANES * (size_t)tile) * sizeof(T)
+       + (kTabInts + (size_t)tile) * sizeof(int) + 2 * (size_t)tile;
 }
 
 template <typename T, int G>
@@ -971,9 +988,11 @@ slab_sweep_kernel(const SlabArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int sb = blockIdx.x / a.C;
-  const int b = sb % a.B;
-  const SlabEntry& e = a.slab[sb / a.B];
+  const int C = a.C, nb = a.nb;
+  const int q = blockIdx.x / (nb * C);
+  const int b = q % a.B;
+  const int kb = rank / C, t = rank % C;  // block in the cluster, tile
+  const SlabEntry& e = a.slab[(q / a.B) * nb + kb];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int Xm = a.Xm;
   const long long plane = (long long)a.Zm * Xm;
@@ -984,19 +1003,41 @@ slab_sweep_kernel(const SlabArgs<T> a) {
   const int Zg = xs ? a.width_total : a.scan_total;
   const int Xg = xs ? a.scan_total : a.width_total;
   const int tile = a.tile, bw = tile + 4;
-  const int w0 = rank * tile;
+  const int w0 = t * tile;
   const int nw = W - w0 < tile ? (W - w0 > 0 ? W - w0 : 0) : tile;
+  const int bwt = nw + 4;
   const T half_inf = T(kINF * 0.5);
   auto fidx = [&](int l, int w) -> long long {
     return xs ? (long long)w * Xm + l : (long long)l * Xm + w;
   };
 
-  T* band = reinterpret_cast<T*>(smem_raw);  // 5 x bw: lines i-2 .. i+2
-  T* rec = band + 5 * bw;                     // 7 x tile: Rec fields
-  T* mat = rec + 7 * tile;                    // 12 x tile: the line's materials
-  int* tabs = reinterpret_cast<int*>(mat + N_PLANES * tile);
+  if (a.refresh >= 0) {
+    // the per-line schedule: slots 0, 1 from the slab before (its W-4,
+    // W-3), slots W-2, W-1 from the slab after (its 2, 3), INF at the
+    // grid's edge
+    if (rank == 0 && tid < 4) {
+      const T* nbr = static_cast<const T*>(tid < 2 ? e.before : e.after);
+      const int from = tid < 2 ? W - 4 + tid : tid;
+      const int to = tid < 2 ? tid : W - 4 + tid;
+      const T v = nbr ? __ldcg(nbr + b * plane + fidx(a.refresh, from))
+                      : T(kINF);
+      __stcg(fld + fidx(a.refresh, to), v);
+    }
+    cluster.sync();
+  }
+  if (a.n_lines == 0) return;
+
+  // K1's layout without the reduction; slot: 2 x 4 halo slots of the
+  // last line, pushed by the neighbouring block
+  T* band = reinterpret_cast<T*>(smem_raw);  // 10 rows of bw
+  T* halo = band + 10 * bw;                   // 2 x 4
+  T* slot = halo + 8;                         // 2 x 4
+  T* newl = slot + 8;                         // tile
+  T* rec = newl + tile;                       // 7 x tile
+  T* mat = rec + 7 * tile;                    // 2 x 12 x tile
+  int* tabs = reinterpret_cast<int*>(mat + 2 * N_PLANES * tile);
   int* flg = tabs + kTabInts;                 // tile
-  uint8_t* fix = reinterpret_cast<uint8_t*>(flg + tile);
+  uint8_t* fix = reinterpret_cast<uint8_t*>(flg + tile);  // 2 x tile
   for (int k = tid; k < kTabInts; k += nt) {
     int v;
     if (k < 48) v = (&kSquare[0][0])[k];
@@ -1008,49 +1049,92 @@ slab_sweep_kernel(const SlabArgs<T> a) {
   }
   const Tabs tb_o{tabs, tabs + 48, tabs + 96, tabs + 104, tabs + 136};
 
-  if (a.refresh >= 0) {
-    // slots 0, 1 from the slab before (its W-4, W-3), slots W-2, W-1 from
-    // the slab after (its 2, 3), INF at the grid's edge
-    if (rank == 0 && tid < 4) {
-      const T* nb = static_cast<const T*>(tid < 2 ? e.before : e.after);
-      const int from = tid < 2 ? W - 4 + tid : tid;
-      const int to = tid < 2 ? tid : W - 4 + tid;
-      const T v = nb ? __ldcg(nb + b * plane + fidx(a.refresh, from))
-                     : T(kINF);
-      __stcg(fld + fidx(a.refresh, to), v);
-    }
-    cluster.sync();
-  }
-
   const bool rep = a.replace != 0;
+  const bool link = a.link != 0;
+  const int step = a.step;
   const int lane = tid % G, group = tid / G, ngroups = nt / G;
+  // the finish takes the warps of the first nw threads; the others, if
+  // there are enough of them, prefetch meanwhile (as in K1)
+  const int fin = (nw + 31) / 32 * 32;
+  const bool split = nt - fin >= 32 && bwt <= 2 * (nt - fin);
+  const int pf_lo = split ? fin : 0, npf = nt - pf_lo;
   const T* mline = static_cast<const T*>(xs ? e.mats_t : e.mats);
-  for (int s = 0; s < a.n_lines; ++s) {
-    const int i = a.l0 + s * a.step;
-    for (int q = tid; q < 5 * (nw + 4); q += nt) {
-      const int r = q / (nw + 4), j = q % (nw + 4);
-      const int l = i - 2 + r, w = w0 - 2 + j;
-      band[r * bw + j] = (l >= 0 && l < L && w >= 0 && w < W)
-                             ? __ldcg(fld + fidx(l, w)) : T(kINF);
+  // a halo slot whose value comes from the neighbouring block
+  auto linked = [&](int w) -> bool {
+    return link && ((w < 2 && kb > 0) || (w >= W - 2 && kb < nb - 1));
+  };
+  auto slot_of = [&](int w) -> int { return w < 2 ? w : w - (W - 4); };
+  // line l at band column j (width w0 - 2 + j), from the field itself
+  auto src_at = [&](int l, int j) -> T {
+    const int w = w0 - 2 + j;
+    return (l >= 0 && l < L && w >= 0 && w < W) ? __ldcg(fld + fidx(l, w))
+                                                 : T(kINF);
+  };
+  auto put_row = [&](int l, int j, T v) {
+    const int m = mod5(l);
+    band[m * bw + j] = v;
+    band[(m + 5) * bw + j] = v;
+  };
+  auto prefetch_mats = [&](int l, int buf, int t0, int nth) {
+    T* ms = mat + buf * N_PLANES * tile;
+    for (int k = t0; k < N_PLANES * nw; k += nth) {
+      int qq = k / nw, p = k % nw;
+      __pipeline_memcpy_async(ms + qq * tile + p,
+                              mline + qq * plane + (long long)l * W + w0 + p,
+                              sizeof(T));
     }
-    for (int q = tid; q < N_PLANES * nw; q += nt) {
-      const int pl = q / nw, p = q % nw;
-      mat[pl * tile + p] = mline[pl * plane + (long long)i * W + w0 + p];
+    __pipeline_commit();
+  };
+  // width w2 of block kb2 with value v into every other CTA of that block
+  // whose band holds it: a tile-edge halo column, or (from the
+  // neighbouring block) the owner's slot
+  auto push = [&](int kb2, int w2, T v, int par, bool own) {
+    for (int t2 = 0; t2 < C; ++t2) {
+      if (own && t2 == t) continue;
+      const int wr = t2 * tile;
+      const int nw2 = W - wr < tile ? (W - wr > 0 ? W - wr : 0) : tile;
+      const int j = w2 - wr + 2;
+      if (nw2 == 0 || j < 0 || j > nw2 + 3) continue;
+      T* buf = halo;
+      int h;
+      if (j < 2) h = j;
+      else if (j >= nw2 + 2) h = j - nw2;
+      else if (own) continue;
+      else { buf = slot; h = slot_of(w2); }
+      cluster.map_shared_rank(buf, kb2 * C + t2)[par * 4 + h] = v;
     }
-    for (int p = tid; p < nw; p += nt) fix[p] = fx[fidx(i, w0 + p)];
-    cluster.sync();  // every CTA holds line i's old values before any write
+  };
 
+  // the first line's band, fixed mask and materials
+  const int i0 = a.l0;
+  for (int k = tid; k < 5 * bwt; k += nt) {
+    int r, j;
+    if (xs) { j = k / 5; r = k % 5; } else { r = k / bwt; j = k % bwt; }
+    put_row(i0 - 2 + r, j, src_at(i0 - 2 + r, j));
+  }
+  for (int p = tid; p < nw; p += nt) fix[p] = fx[fidx(i0, w0 + p)];
+  prefetch_mats(i0, 0, tid, nt);
+  __pipeline_wait_prior(0);
+  cluster.sync();  // every CTA holds the first line's old values
+
+  for (int s = 0; s < a.n_lines; ++s) {
+    const int i = i0 + s * step;
+    const int cur = s & 1;
+    const bool more = s + 1 < a.n_lines;
     const int gl = i + e.scan_off;
+    // candidates: G lanes per point, records to shared memory
+    const T* bnd = band + mod5(i - 2) * bw;
+    const T* ms = mat + cur * N_PLANES * tile;
     for (int p0 = 0; p0 < nw; p0 += ngroups) {
       const int p = p0 + group;
       const bool valid = p < nw;
       const int pc = valid ? p : nw - 1;
       const int gw = w0 + pc + e.width_off;
-      Nb<T> n{band, bw, pc + 2, xs, xs ? gw : gl, xs ? gl : gw, Zg, Xg,
-              band[2 * bw + pc + 2]};
+      Nb<T> n{bnd, bw, pc + 2, xs, xs ? gw : gl, xs ? gl : gw, Zg, Xg,
+              bnd[2 * bw + pc + 2]};
       T fb[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) fb[q] = mat[(P_FB0 + q) * tile + pc];
+      for (int qq = 0; qq < 4; ++qq) fb[qq] = ms[(P_FB0 + qq) * tile + pc];
       const Rec<T> r = candidates<T, G>(n, lane, fb, tb_o, a.dnx);
       if (valid && lane == 0) {
         rec[0 * tile + pc] = r.dx;
@@ -1064,27 +1148,89 @@ slab_sweep_kernel(const SlabArgs<T> a) {
       }
     }
     __syncthreads();
-    for (int p = tid; p < nw; p += nt) {
-      if (fix[p]) continue;
-      Rec<T> r;
-      r.dx = rec[0 * tile + p];
-      r.dz = rec[1 * tile + p];
-      r.oang = rec[2 * tile + p];
-      r.dist = rec[3 * tile + p];
-      r.wt = rec[4 * tile + p];
-      r.mx = rec[5 * tile + p];
-      r.fouds = rec[6 * tile + p];
-      r.flags = flg[p];
-      T m[N_PLANES];
+
+    // finish: one thread per point; write back, push the tile-edge
+    // columns and the neighbouring blocks' slots.  The warps with no
+    // point to finish meanwhile prefetch the next line.
+    const int par = s & 1;
+    T pre_v[2];
+    uint8_t pre_f[2];
+    const bool fin_thread = !split || tid < fin;
+    if (more && (!split || !fin_thread)) {
+      const int ptid = tid - pf_lo;
+      prefetch_mats(i + step, cur ^ 1, ptid, npf);
 #pragma unroll
-      for (int q = 0; q < N_PLANES; ++q) m[q] = mat[q * tile + p];
-      const T tc = band[2 * bw + p + 2];
-      const T nv = finish(r, m, a.tb, a.dnx);
-      const T acc_min = vmin(tc, nv);
-      const T acc_rep = nv < half_inf ? nv : tc;
-      __stcg(fld + fidx(i, w0 + p), rep ? acc_rep : acc_min);
+      for (int u = 0; u < 2; ++u) {
+        const int j = ptid + u * npf;
+        pre_v[u] = j < bwt ? src_at(i + 3 * step, j) : T(kINF);
+        pre_f[u] = j < nw ? fx[fidx(i + step, w0 + j)] : 0;
+      }
     }
-    cluster.sync();  // line i's new values reach every CTA of the cluster
+    if (fin_thread) for (int p = tid; p < nw; p += split ? fin : nt) {
+      const int w = w0 + p;
+      if (linked(w)) continue;  // the neighbouring block pushes it
+      const T tc = bnd[2 * bw + p + 2];
+      T o = tc;
+      if (link && (w < 2 || w >= W - 2)) {
+        o = T(kINF);  // a slot at the grid's edge
+      } else if (!fix[cur * tile + p]) {
+        Rec<T> r;
+        r.dx = rec[0 * tile + p];
+        r.dz = rec[1 * tile + p];
+        r.oang = rec[2 * tile + p];
+        r.dist = rec[3 * tile + p];
+        r.wt = rec[4 * tile + p];
+        r.mx = rec[5 * tile + p];
+        r.fouds = rec[6 * tile + p];
+        r.flags = flg[p];
+        T m[N_PLANES];
+#pragma unroll
+        for (int qq = 0; qq < N_PLANES; ++qq) m[qq] = ms[qq * tile + p];
+        const T nv = finish(r, m, a.tb, a.dnx);
+        const T acc_min = vmin(tc, nv);
+        const T acc_rep = nv < half_inf ? nv : tc;
+        o = rep ? acc_rep : acc_min;
+      }
+      newl[p] = o;
+      __stcg(fld + fidx(i, w), o);
+      if (p < 2 || p >= nw - 2) push(kb, w, o, par, true);
+      if (link && (w == W - 4 || w == W - 3) && kb < nb - 1)
+        push(kb + 1, w - (W - 4), o, par, false);
+      if (link && (w == 2 || w == 3) && kb > 0)
+        push(kb - 1, w + W - 4, o, par, false);
+    }
+    cluster.sync();
+
+    // the finished line into the ring (its linked slots also to global
+    // memory), and the new line ahead
+    for (int j = tid; j < bwt; j += nt) {
+      const int w = w0 - 2 + j;
+      T v;
+      if (w < 0 || w >= W) {
+        v = T(kINF);
+      } else if (j >= 2 && j < nw + 2) {
+        if (linked(w)) {
+          v = slot[par * 4 + slot_of(w)];
+          __stcg(fld + fidx(i, w), v);
+        } else {
+          v = newl[j - 2];
+        }
+      } else {
+        v = halo[par * 4 + (j < 2 ? j : j - nw)];
+      }
+      if (more) put_row(i, j, v);
+    }
+    if (!more) break;
+    if (!split || !fin_thread) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = tid - pf_lo + u * npf;
+        if (j < bwt) put_row(i + 3 * step, j, pre_v[u]);
+        if (j < nw) fix[(cur ^ 1) * tile + j] = pre_f[u];
+      }
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();
   }
 }
 
@@ -1102,7 +1248,7 @@ int launch_slab_g(const SlabArgs<T>& a, int nt, size_t smem,
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.C;
+  attr[0].val.clusterDim.x = a.nb * a.C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1117,11 +1263,13 @@ int launch_slab(const void* table, int n_slabs, int B, int Zm, int Xm,
                 int xs, int l0, int n_lines, int step, int refresh,
                 int replace, int scan_total, int width_total, const void* tab,
                 int M, const void* col_mode, const void* col_const,
-                int has_stif, double dnx, int C, int G, void* stream) {
+                int has_stif, double dnx, int nb, int link, int C, int G,
+                void* stream) {
   const int L = xs ? Xm : Zm, W = xs ? Zm : Xm;
   const int last = l0 + (n_lines - 1) * step;
   if (n_slabs < 1 || n_slabs > kMaxSlabs || B <= 0 || Zm <= 0 || Xm <= 0
-      || W < 6 || C < 1 || C > kMaxCluster || (step != 1 && step != -1)
+      || W < 6 || C < 1 || nb < 1 || n_slabs % nb || nb * C > kMaxCluster
+      || (link && refresh >= 0) || (step != 1 && step != -1)
       || n_lines < 0 || refresh < -1 || refresh >= L
       || (n_lines > 0 && (l0 < 0 || l0 >= L || last < 0 || last >= L)))
     return (int)cudaErrorInvalidValue;
@@ -1143,10 +1291,13 @@ int launch_slab(const void* table, int n_slabs, int B, int Zm, int Xm,
   a.replace = replace;
   a.scan_total = scan_total;
   a.width_total = width_total;
+  a.nb = nb;
+  a.link = link;
   a.C = C;
   a.tile = (W + C - 1) / C;
   int nt = ((a.tile * G + 31) / 32) * 32;
   nt = nt > kMaxThreads ? kMaxThreads : nt;
+  if (a.tile + 4 > 2 * nt) return (int)cudaErrorInvalidValue;  // see pre_v
   const size_t smem = slab_smem_bytes<T>(a.tile);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1190,20 +1341,22 @@ int alifmm_sweep_pass_f64(const void* tt_in, void* tt_out, void* scratch,
 }
 
 // K5: one directional sweep over the slabs of `table` (n_slabs SlabEntry
-// records in host memory), lines l0, l0 + step, ... (n_lines of them),
-// after refreshing line `refresh`'s halo slots when it is >= 0; returns
-// the CUDA error of the attribute set or the launch.
+// records in host memory), lines l0, l0 + step, ... (n_lines of them), a
+// cluster of nb x C CTAs over nb slabs (with `link`, neighbours across
+// the width whose halo slots are passed in the cluster), after
+// refreshing line `refresh`'s halo slots when it is >= 0; returns the
+// CUDA error of the attribute set or the launch.
 int alifmm_slab_sweep_f32(const void* table, int n_slabs, int B, int Zm,
                           int Xm, int xs, int l0, int n_lines, int step,
                           int refresh, int replace, int scan_total,
                           int width_total, const void* tab, int M,
                           const void* col_mode, const void* col_const,
-                          int has_stif, double dnx, int C, int G,
-                          void* stream) {
+                          int has_stif, double dnx, int nb, int link, int C,
+                          int G, void* stream) {
   return launch_slab<float>(table, n_slabs, B, Zm, Xm, xs, l0, n_lines, step,
                             refresh, replace, scan_total, width_total, tab,
-                            M, col_mode, col_const, has_stif, dnx, C, G,
-                            stream);
+                            M, col_mode, col_const, has_stif, dnx, nb, link,
+                            C, G, stream);
 }
 
 int alifmm_slab_sweep_f64(const void* table, int n_slabs, int B, int Zm,
@@ -1211,12 +1364,12 @@ int alifmm_slab_sweep_f64(const void* table, int n_slabs, int B, int Zm,
                           int refresh, int replace, int scan_total,
                           int width_total, const void* tab, int M,
                           const void* col_mode, const void* col_const,
-                          int has_stif, double dnx, int C, int G,
-                          void* stream) {
+                          int has_stif, double dnx, int nb, int link, int C,
+                          int G, void* stream) {
   return launch_slab<double>(table, n_slabs, B, Zm, Xm, xs, l0, n_lines,
                              step, refresh, replace, scan_total, width_total,
-                             tab, M, col_mode, col_const, has_stif, dnx, C,
-                             G, stream);
+                             tab, M, col_mode, col_const, has_stif, dnx, nb,
+                             link, C, G, stream);
 }
 
 // Lets `device` read and write `peer`'s memory (K5's halo refresh reads

@@ -17,7 +17,9 @@ the per-pass delta and scale to the host once per pass.
 
 K5 (``csrc/sweep.cu``, same library) runs one directional sweep over the
 slabs of a decomposed grid, in place, in global coordinates, with the
-per-line halo refresh of the halo solves (``parallel/shard.py``).
+per-line halo refresh of the halo solves (``parallel/shard.py``), in one
+launch where the slabs share a device and fit a cluster
+(``slab_config``).
 ``slab_sweep`` is its wrapper (the plain twin ``ops/sweep.slab_sweep`` for
 CPU tensors), ``SlabSweep`` binds it to a set of slabs for a whole solve,
 ``SLAB_LAUNCHES`` counts its launches.
@@ -38,7 +40,7 @@ from . import _build, sweep
 
 __all__ = ["LAUNCHES", "SLAB_LAUNCHES", "build", "launch_config",
            "pack_model", "sweep_pass", "solve_fixpoint", "slab_config",
-           "SlabSweep", "slab_sweep"]
+           "SlabLayout", "SlabSweep", "slab_sweep"]
 
 LAUNCHES = 0
 SLAB_LAUNCHES = 0
@@ -75,8 +77,9 @@ def build(verbose: bool = False):
         fn.restype = i32
     for name in ("alifmm_slab_sweep_f32", "alifmm_slab_sweep_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] + [i32] * 12 + [ptr, i32, ptr, ptr, i32,
-                                            ctypes.c_double, i32, i32, ptr]
+        fn.argtypes = ([ptr] + [i32] * 12 + [ptr, i32, ptr, ptr, i32,
+                                             ctypes.c_double]
+                       + [i32] * 4 + [ptr])
         fn.restype = i32
     lib.alifmm_enable_peer_access.argtypes = [i32, i32]
     lib.alifmm_enable_peer_access.restype = i32
@@ -246,6 +249,7 @@ def solve_fixpoint(tt0, model: gridlib.Model, fixed, rel_tol: float = 1e-6,
 # --------------------------------------------------------------------- #
 
 MAX_SLABS = 16  # slabs in one K5 launch (csrc/sweep.cu, kMaxSlabs)
+MAX_CLUSTER = 8  # CTAs in one cluster (csrc/sweep.cu, kMaxCluster)
 
 
 class _SlabEntry(ctypes.Structure):
@@ -257,35 +261,93 @@ class _SlabEntry(ctypes.Structure):
                 ("scan_off", ctypes.c_int), ("width_off", ctypes.c_int)]
 
 
-def slab_config(clusters: int, W: int, sms: int):
-    """K5's (cluster size C, lanes per point G) for ``clusters`` (slab,
-    source) pairs of lines W wide, by K1's rule (``launch_config``): the
-    largest C that keeps every CTA resident at two an SM with tiles of
-    ``MIN_TILE`` to ``MAX_TILE`` points; G = 8 where a line step is
-    latency-bound."""
-    lanes = 8 if clusters * W <= 32 * sms else 4
-    for c in CLUSTER_SIZES:
-        tile = -(-W // c)
-        if tile <= MAX_TILE and (c == 1 or (clusters * c <= 2 * sms
-                                            and tile >= MIN_TILE)):
-            return c, lanes
-    raise ValueError(f"K5 takes lines of up to {8 * MAX_TILE} points, "
-                     f"not {W}")
+class SlabLayout(typing.NamedTuple):
+    """K5's launch layout for one sweep (``slab_config``)."""
+
+    per_line: bool  # the per-line schedule: a launch a line
+    blocks: int     # slabs in one cluster: the line of blocks, or 1
+    cluster: int    # CTAs a slab (its width tiles), c
+    lanes: int      # lanes per point, G
+
+
+def slab_config(B: int, n_blocks: int, W: int, sms: int, devices: int = 1,
+                refresh: bool = True, per_line: bool = False,
+                cluster: int | None = None,
+                lanes: int | None = None) -> SlabLayout:
+    """K5's layout for one sweep over ``n_blocks`` slabs of B sources with
+    lines W wide, on ``devices`` devices; ``refresh``: the slabs are a line
+    of neighbours across the width whose halo slots each line refreshes.
+
+    A refreshed sweep is one launch, each source's cluster holding the
+    whole line of blocks (``blocks`` = n_blocks, the slots passed through
+    distributed shared memory), when the blocks share one device and fit
+    one cluster: n_blocks x c <= 8 with tiles of at most ``MAX_TILE``
+    points.  Otherwise (blocks on several devices, more than 8 on one, or
+    ``per_line``, which only the checks pass) it keeps the per-line
+    schedule: a launch a line, a cluster a block.  A sweep without refresh
+    is one launch, a cluster a block.
+
+    c, the CTAs a block, follows K1's rule (``launch_config``): the
+    largest of 8, 4, 2, 1 within the cluster that keeps every CTA resident
+    at two an SM with tiles of ``MIN_TILE`` to ``MAX_TILE`` points (c = 1
+    whenever its tile fits); G = 8 where a line step is latency-bound.
+    The weld's four slabs (W = 110) take c = 2, its 2 x 2 blocks (W = 254
+    and 216) c = 4, the fine weld's four slabs (W = 956) c = 2.
+    ``cluster``/``lanes`` force c (any that fits the cluster: ragged
+    tiles) and G, for the checks."""
+    if lanes is None:
+        lanes = 8 if B * n_blocks * W <= 32 * sms else 4
+    if lanes not in LANE_COUNTS:
+        raise ValueError(f"K5 takes {LANE_COUNTS} lanes per point, not "
+                         f"{lanes}")
+
+    def tiles(nb):
+        for c in (CLUSTER_SIZES if cluster is None else (cluster,)):
+            tile = -(-W // c)
+            if 1 <= nb * c <= MAX_CLUSTER and tile <= MAX_TILE and (
+                    c == 1 or cluster is not None
+                    or (B * n_blocks * c <= 2 * sms and tile >= MIN_TILE)):
+                return c
+        return None
+
+    one = refresh and not (per_line or devices > 1
+                           or n_blocks > MAX_CLUSTER)
+    c = tiles(n_blocks) if one else None
+    if c is not None:
+        return SlabLayout(False, n_blocks, c, lanes)
+    c = tiles(1)
+    if c is None:
+        raise ValueError(f"K5 takes lines of up to {MAX_CLUSTER * MAX_TILE} "
+                         f"points in clusters of up to {MAX_CLUSTER} CTAs, "
+                         f"not {W} points in {cluster or 'any'}")
+    return SlabLayout(refresh, 1, c, lanes)
 
 
 class SlabSweep:
     """K5 bound to same-shaped slabs (B, Zm, Xm) that it updates in place,
     with their fixed masks, packed models (``pack_model``) and, for one
     sweep axis, their ``sweep.Geometry`` and halo ``neighbours`` (see
-    ``sweep._sweep_blocks``; None: no per-line refresh).  The slabs of
-    each device go into its launches (up to ``MAX_SLABS`` each); slabs
-    on several devices meet after every launch (events), and read each
-    other through peer access.  ``run(rev, replace)`` sweeps every line:
-    one launch without neighbours, else a launch a line (each refreshing
-    the line before it) and one that refreshes the last."""
+    ``sweep._sweep_blocks``; None: no per-line refresh).  ``run(rev,
+    replace)`` sweeps every line.
+
+    ``slab_config`` picks the schedule by shape.  A sweep without
+    neighbours is one launch, a cluster a slab (up to ``MAX_SLABS`` slabs
+    a launch).  A refreshed sweep whose line of blocks shares one device
+    and fits one cluster is one launch too: each source's cluster spans
+    the line of blocks and passes every finished line's halo slots
+    between its CTAs through distributed shared memory.  Otherwise it is
+    a launch a line, each refreshing the line before it from the
+    neighbours' memory, and one that refreshes the last
+    (``per_line=True`` forces this for the checks, as ``cluster`` and
+    ``lanes`` force c and G); slabs on several devices then meet after
+    every launch (events) and read each other through peer access.  A
+    line step is K1's, so a one-launch sweep takes about what K1 takes
+    for the same lines at the same width (about 5.5 us a line at the
+    weld's final stage on the H100); the per-line schedule is bound by
+    the host's launch (about 13 us a line)."""
 
     def __init__(self, blocks, fixeds, packs, axis, geometries,
-                 neighbours=None):
+                 neighbours=None, per_line=False, cluster=None, lanes=None):
         t0 = blocks[0]
         if t0.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"K5 takes float32 or float64 fields, not "
@@ -323,11 +385,20 @@ class SlabSweep:
                        p0.col_mode.data_ptr(), p0.col_const.data_ptr(),
                        int(p0.has_stif), p0.dnx)
         self.shape = (B, Zm, Xm)
-        self.groups = []
         devices = []
-        for k, t in enumerate(blocks):
+        for t in blocks:
             if t.device not in devices:
                 devices.append(t.device)
+        refresh = neighbours is not None
+        # the cluster passes slots between consecutive blocks only
+        chain = [(k - 1 if k else None, k + 1 if k < len(blocks) - 1
+                  else None) for k in range(len(blocks))]
+        self.layout = slab_config(
+            B, len(blocks), W, _sm_count(devices[0]), len(devices), refresh,
+            per_line or (refresh and list(map(tuple, neighbours)) != chain),
+            cluster, lanes)
+        self.link = int(refresh and not self.layout.per_line)
+        self.groups = []
         for dev in devices:
             ks = [k for k, t in enumerate(blocks) if t.device == dev]
             launches = []
@@ -336,8 +407,7 @@ class SlabSweep:
                 entries = (_SlabEntry * len(part))(*[
                     self._entry(k, fixeds[k], packs[k], geometries[k], dev)
                     for k in part])
-                C, G = slab_config(len(part) * B, W, _sm_count(dev))
-                launches.append((entries, len(part), C, G))
+                launches.append((entries, len(part)))
             self.groups.append((dev, launches))
 
     def _entry(self, k, fixed, packed, geom, dev):
@@ -362,22 +432,24 @@ class SlabSweep:
                           int(geom.width_off))
 
     def _streams(self):
-        """Each device's current stream, read once a sweep: a refreshed
-        sweep is a launch a line, whose cost is the host's."""
+        """Each device's current stream, read once a sweep (the per-line
+        schedule's cost is the host's)."""
         return [torch.cuda.current_stream(dev) for dev, _ in self.groups]
 
     def _launch(self, streams, l0, n_lines, step, refresh, replace):
         global SLAB_LAUNCHES
         B, Zm, Xm = self.shape
+        lay = self.layout
         home = torch.cuda.current_device()
         for (dev, launches), stream in zip(self.groups, streams):
             if dev.index != home:
                 torch.cuda.set_device(dev)
-            for entries, n, C, G in launches:
+            for entries, n in launches:
                 err = self.fn(ctypes.addressof(entries), n, B, Zm, Xm,
                               int(self.xs), l0, n_lines, step, refresh,
                               int(bool(replace)), *self.totals,
-                              *self.tables, C, G, stream.cuda_stream)
+                              *self.tables, lay.blocks, self.link,
+                              lay.cluster, lay.lanes, stream.cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"K5 launch failed: CUDA error {err}")
                 SLAB_LAUNCHES += 1
@@ -392,7 +464,8 @@ class SlabSweep:
 
     def launch(self, l0, n_lines, step, refresh, replace):
         """One launch on every device: lines l0, l0 + step, ... (n_lines),
-        after refreshing line ``refresh`` (-1: none)."""
+        after refreshing line ``refresh`` (-1: none; the per-line schedule
+        only)."""
         self._launch(self._streams(), l0, n_lines, step, refresh, replace)
 
     def run(self, rev, replace):
@@ -400,7 +473,7 @@ class SlabSweep:
         L = self.L
         l0, step = (L - 1, -1) if rev else (0, 1)
         streams = self._streams()
-        if self.neighbours is None:
+        if not self.layout.per_line:
             self._launch(streams, l0, L, step, -1, replace)
             return
         prev = -1

@@ -138,27 +138,33 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    blocks, three z slabs, four source ranks): (12a) the slab sweep kernel
    K5 against its graphed twin ``sweep.slab_sweep``, max abs 0, float64
    and float32, on ``HALO_CASES`` (48 x 56 on four slabs and on 2 x 2
-   blocks, and both with padded rows or columns): every directional sweep
-   of a halo pass as a bare launch, min and replace, a pass through
-   ``_halo_jacobi_block`` or ``_halo_block2d``, and a sweep through the
-   wrapper ``cuda_sweep.slab_sweep``; (12b) ``solve_halo_sharded`` with a
+   blocks, and both with padded rows or columns), in ``slab_config``'s
+   layouts and in forced ones (four slabs with c = 1 and G = 4, 2 x 2
+   with c = 3: ragged tiles, the per-line schedule on both): every
+   directional sweep of a halo pass as a bare launch, min and replace, a
+   pass through ``_halo_jacobi_block`` or ``_halo_block2d``, and a sweep
+   through the wrapper ``cuda_sweep.slab_sweep``; (12b)
+   ``solve_halo_sharded`` with a
    fixed budget against K1's single-device ``solve_fixpoint`` with the
    matched budget, max abs 0, on 48 x 56 (four slabs, 2 x 2) and 50 x 56
    (three slabs, a padded row) in both types, and on the weld's final
    stage (the injected state of its 31 sources at 424 x 500, float32) on
    four slabs and 2 x 2; (12c) ``solve_ttf_halo`` on the weld (its
    budgets, residual-driven) on four slabs and 2 x 2 against the
-   single-device solve, then K5 at the weld's final shape: one slab
-   z-sweep against its twin and timed beside its bound, a one-line launch
-   of the refreshed x-sweep, a halo round of each layout beside K1's
-   pass, the exchange copies and bytes a round; (12d)
+   single-device solve, with 50 and 40 K5 launches, then K5 at the
+   weld's final shape: one slab z-sweep against its twin and timed beside
+   its bound, the refreshed x-sweep of the four slabs in one launch
+   against its twin and timed beside its bound and beside the per-line
+   schedule (and one of its one-line launches), a halo round of each
+   layout beside K1's pass and its bound, with 10 and 8 K5 launches, the
+   exchange copies and bytes a round; (12d)
    ``solve_ttf_sharded`` and ``trace_rays_sharded`` on four source ranks
    against the unsharded weld slice bit for bit, directly and in a
    one-rank NCCL group (``multihost.init`` on tcp://localhost, left at
    the end); (12e) the weld slice through ``ALI_FMM(grid_mesh=...)`` (four
    z slabs), a warm-up call and a timed one with every count set to 0
-   just before it (K1, K5, one K2 and one K3 launch, no plain pass), its
-   ray times and fields against the plain facade's.
+   just before it (K1, 50 K5, one K2 and one K3 launch, no plain pass),
+   its ray times and fields against the plain facade's.
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``.
@@ -3250,28 +3256,75 @@ def padded_case(Z, X, rows, cols, dtype, device, B=3):
             F.pad(fixed, (0, cols, 0, rows), value=True))
 
 
-# (mesh, Z, X, padded rows, padded columns) of phase 12a's cases
+# K5 layouts a case runs, each against the same twin: slab_config's own
+# ({}), or forced through SlabSweep's per_line, cluster and lanes.  At
+# 48 x 56 slab_config takes c = 2, G = 8 for the four slabs' x-sweeps (16
+# wide, a cluster of 8 CTAs) and c = 4 for their z-sweeps; c = 4 and c =
+# 2 for the 2 x 2 blocks' z- and x-sweeps (32 and 28 wide); c = 3 gives
+# ragged tiles (11, 11, 10 and 10, 10, 8) in clusters of 6 CTAs.
+AUTO_LAYOUT = ({},)
+FORCED_1D = AUTO_LAYOUT + ({"cluster": 1, "lanes": 4}, {"per_line": True})
+FORCED_2D = AUTO_LAYOUT + ({"cluster": 3}, {"per_line": True})
+# (mesh, Z, X, padded rows, padded columns, K5 layouts) of phase 12a's
+# cases
 HALO_CASES = {
-    "1D 4 slabs 48x56": ("1d", 48, 56, 0, 0),
-    "2D 2x2 48x56": ("2d", 48, 56, 0, 0),
-    "1D 4 slabs 46x56 padded to 48": ("1d", 46, 56, 2, 0),
-    "2D 2x2 46x54 padded to 48x56": ("2d", 46, 54, 2, 2),
+    "1D 4 slabs 48x56": ("1d", 48, 56, 0, 0, FORCED_1D),
+    "2D 2x2 48x56": ("2d", 48, 56, 0, 0, FORCED_2D),
+    "1D 4 slabs 46x56 padded to 48": ("1d", 46, 56, 2, 0, AUTO_LAYOUT),
+    "2D 2x2 46x54 padded to 48x56": ("2d", 46, 54, 2, 2, AUTO_LAYOUT),
 }
 
 
-def halo_pair(tt, model, fixed, mesh, axis, z_true=None, x_true=None):
-    """Two halo states of the same inputs: the plain twin's (graphed) and
-    K5's, after their first halo exchange."""
+def halo_lines(h):
+    """(keys, axis, refresh) of every sweep of a halo pass on ``h``'s
+    blocks: each a line of blocks across the width."""
+    if h.two_d:
+        return ([(tuple((s, ix) for ix in range(h.nx)), "z", True)
+                 for s in range(h.nz)]
+                + [(tuple((iz, s) for iz in range(h.nz)), "x", True)
+                   for s in range(h.nx)])
+    return ([(((s, 0),), "z", False) for s in range(h.nz)]
+            + [(tuple((iz, 0) for iz in range(h.nz)), "x", True)])
+
+
+def chain(n):
+    """The halo neighbours (before, after) of a line of n blocks."""
+    return [(j - 1 if j else None, j + 1 if j < n - 1 else None)
+            for j in range(n)]
+
+
+def bind_layout(h, layout):
+    """Bind K5 to every line of blocks of ``h`` with ``layout`` (keywords
+    of SlabSweep: per_line, cluster, lanes) forced, as ``_Halo.sweep``
+    would bind it."""
+    from alifmm_tpu_torch.ops import cuda_sweep
+
+    for keys, axis, refresh in halo_lines(h):
+        h.kernels[keys, axis] = cuda_sweep.SlabSweep(
+            [h.t[k] for k in keys], [h.f[k] for k in keys],
+            [h.packs[k] for k in keys], axis,
+            [h.geometry(k, axis) for k in keys],
+            chain(len(keys)) if refresh else None, **layout)
+
+
+def halo_pair(tt, model, fixed, mesh, axis, z_true=None, x_true=None,
+              layouts=AUTO_LAYOUT):
+    """Halo states of the same inputs: the plain twin's (graphed) and one
+    of K5's for each of ``layouts``, after their first halo exchange."""
     from alifmm_tpu_torch.parallel import shard
 
     grid, two_d = shard._halo_grid(mesh, axis)
-    pair = [shard._Halo(tt, model, fixed, grid, two_d, z_true, x_true,
-                        plain=plain) for plain in (True, False)]
-    for h in pair:
+    states = [shard._Halo(tt, model, fixed, grid, two_d, z_true, x_true,
+                          plain=plain)
+              for plain in [True] + [False] * len(layouts)]
+    for h, layout in zip(states[1:], layouts):
+        if layout:
+            bind_layout(h, layout)
+    for h in states:
         if two_d:
             h.exchange_x()
         h.exchange_z()
-    return pair
+    return states
 
 
 def halo_diff(hp, hk, what):
@@ -3290,23 +3343,29 @@ def halo_diff(hp, hk, what):
 
 
 def check_halo_case(name, dtype, device):
-    """(12a) K5 against its graphed twin, max abs 0: every directional
-    sweep of a halo pass as a bare launch (each z slab, each line of
-    blocks), min and replace, then one pass through _halo_jacobi_block or
-    _halo_block2d; and one sweep through the wrapper cuda_sweep
-    .slab_sweep."""
+    """(12a) K5 against its graphed twin, max abs 0, in each of the case's
+    layouts: every directional sweep of a halo pass as a bare launch (each
+    z slab, each line of blocks), min and replace, then one pass through
+    _halo_jacobi_block or _halo_block2d; and one sweep through the wrapper
+    cuda_sweep.slab_sweep."""
     from alifmm_tpu_torch.ops import cuda_sweep, sweep
     from alifmm_tpu_torch.parallel import shard
 
-    kind, Z, X, rows, cols = HALO_CASES[name]
+    kind, Z, X, rows, cols, layouts = HALO_CASES[name]
     mesh, axis = virtual_mesh(device, kind)
     tt, model, fixed = padded_case(Z, X, rows, cols, dtype, device)
-    hp, hk = halo_pair(tt, model, fixed, mesh, axis,
-                       Z if rows else None, X if cols else None)
+    hp, *hks = halo_pair(tt, model, fixed, mesh, axis,
+                         Z if rows else None, X if cols else None, layouts)
+    hk = hks[0]
     dname = str(dtype).replace("torch.", "")
     two_d = hp.two_d
     t0 = time.perf_counter()
     n = 0
+
+    def diff(what):
+        for h, layout in zip(hks, layouts):
+            halo_diff(hp, h, f"{name} {dname} {layout or 'slab_config'} "
+                      f"{what}")
     for replace in (False, True):
         mode = "replace" if replace else "min"
         for axis_, count in (("z", hp.nz), ("x", hp.nx if two_d else 1)):
@@ -3319,15 +3378,24 @@ def check_halo_case(name, dtype, device):
                         keys = ([(iz, s) for iz in range(hp.nz)] if two_d
                                 else [(iz, 0) for iz in range(hp.nz)])
                     refresh = two_d or axis_ == "x"
-                    for h in (hp, hk):
+                    hp.sweep(keys, axis_, rev, replace, refresh)
+                    lines = hp.t[keys[0]].shape[-1 if axis_ == "x" else -2]
+                    for h, layout in zip(hks, layouts):
+                        # a launch a sweep, but a line (and one more) in
+                        # the per-line schedule
+                        want = (lines + 1 if refresh and layout.get("per_line")
+                                else 1)
+                        n0 = cuda_sweep.SLAB_LAUNCHES
                         h.sweep(keys, axis_, rev, replace, refresh)
-                    halo_diff(hp, hk, f"{name} {dname} {axis_} rev={rev} "
-                              f"{mode} blocks {keys}")
+                        got = cuda_sweep.SLAB_LAUNCHES - n0
+                        check(got == want, f"{name} {layout or 'slab_config'}"
+                              f": {got} K5 launches for a sweep, not {want}")
+                    diff(f"{axis_} rev={rev} {mode} blocks {keys}")
                     n += 1
         block = shard._halo_block2d if two_d else shard._halo_jacobi_block
-        for h in (hp, hk):
+        for h in (hp, *hks):
             block(h, 1, replace)
-        halo_diff(hp, hk, f"{name} {dname} {block.__name__} {mode}")
+        diff(f"{block.__name__} {mode}")
     k = (1, 0)
     geom = [hp.geometry(k, "z")]
     new_p = sweep.slab_sweep([hp.t[k]], [hp.m[k]], [hp.f[k]], "z", False,
@@ -3337,9 +3405,9 @@ def check_halo_case(name, dtype, device):
     torch.cuda.synchronize()
     check(torch.equal(new_k[0], new_p[0]),
           f"{name} {dname}: cuda_sweep.slab_sweep differs from its twin")
-    log(f"  {name} {dname}: {n} bare sweeps, 2 halo passes and one wrapper "
-        f"sweep equal to the twin, max abs 0 "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"  {name} {dname}: {n} bare sweeps and 2 halo passes in "
+        f"{len(layouts)} layout(s), and one wrapper sweep, equal to the "
+        f"twin, max abs 0 ({time.perf_counter() - t0:.1f} s)")
     return 0.0
 
 
@@ -3411,29 +3479,47 @@ def phase_halo_fixed(inputs, device):
     return out
 
 
-def slab_bound(h, k):
-    """K5's bound for one sweep of block ``k``: the operations of its
-    points that are not fixed (``update_ops`` by path), and its field
-    read and written once, its fixed mask and 12 material planes read
-    once."""
+def slab_work(h, k):
+    """The work of one sweep of block ``k``: the operations of its points
+    that are not fixed (``update_ops`` by path), and the bytes of its
+    field read and written once, its fixed mask and 12 material planes
+    read once."""
     packed = h.packs[k]
     fixed = h.f[k]
     ops = int((update_ops(packed) * ~fixed).sum())
     item = h.t[k].element_size()
     nbytes = (2 * h.t[k].numel() * item + fixed.numel()
               + packed.planes.numel() * item)
-    return roofline(ops, nbytes)
+    return ops, nbytes
+
+
+def slab_bound(h, keys, sweeps=1):
+    """K5's bound for ``sweeps`` sweeps of each block of ``keys``: the
+    roofline of their work summed."""
+    work = [slab_work(h, k) for k in keys]
+    return roofline(sweeps * sum(o for o, _ in work),
+                    sweeps * sum(b for _, b in work))
+
+
+
+# K5 launches a halo round at the weld (n_inner = 1): four slabs, 8 slab
+# z-sweeps and 2 refreshed x-sweeps; 2 x 2, 8 refreshed sweeps of a line
+# of two blocks.  solve_ttf_halo there takes 3 + 2 rounds.
+ROUND_LAUNCHES = {"1d": 10, "2d": 8}
+WELD_HALO_ROUNDS = 5
 
 
 def phase_halo_weld(inputs, ttfs, k1_ms, device):
     """(12c) solve_ttf_halo on the weld (weld budgets, residual-driven) on
     the 4-slab and the 2 x 2 mesh: passes, converged, the largest
     difference from the single-device staged solve, finite fields, K5
-    launches; then on the weld's final-stage input: one K5 z-sweep of a
-    slab against its graphed twin (max abs 0) and timed beside its bound
-    and the twin, a one-line launch of the refreshed x-sweep, one halo
-    round of each layout beside K1's pass, and the exchange copies and
-    bytes a round."""
+    launches (checked); then on the weld's final-stage input: one K5
+    z-sweep of a slab against its graphed twin (max abs 0) and timed
+    beside its bound and the twin, the refreshed x-sweep of the four slabs
+    in one launch against its graphed twin (max abs 0) and timed beside
+    its bound and beside the per-line schedule and its one-line launch,
+    one halo round of each layout beside K1's pass and its bound (K5
+    launches checked), and the exchange copies and bytes a round."""
     from alifmm_tpu_torch import solver
     from alifmm_tpu_torch.ops import cuda_sweep
     from alifmm_tpu_torch.parallel import shard
@@ -3464,6 +3550,9 @@ def phase_halo_weld(inputs, ttfs, k1_ms, device):
             f"max rel {rel_e:.3e}")
         check(diff <= tol * scale, f"halo weld on {kind} differs from the "
               f"single-device solve by {diff:.3e}")
+        want = WELD_HALO_ROUNDS * ROUND_LAUNCHES[kind]
+        check(launches == want, f"solve_ttf_halo on {kind} launched K5 "
+              f"{launches} times, not {want}")
         out[kind] = dict(wall=wall, passes=info.passes,
                          converged=info.converged, launches=launches,
                          max_abs=abs_e, max_rel=rel_e)
@@ -3477,18 +3566,44 @@ def phase_halo_weld(inputs, ttfs, k1_ms, device):
     check(torch.equal(hk.t[k], hp.t[k]),
           "K5's slab z-sweep at the weld differs from its twin")
     ms = time_events(lambda: hk.sweep([k], "z", False, False, False), 5)
-    bound, by = slab_bound(hk, k)
+    bound, by = slab_bound(hk, [k])
     lines = hk.t[k].shape[-2]
+    B = tt0.shape[0]
+    k1_line_us = k1_ms / (2 * sum(tt0.shape[1:])) * 1e3
     log(f"  K5 one z-sweep of slab 1 ({tuple(hk.t[k].shape)}, {lines} "
-        f"lines) {ms:.4f} ms ({ms / lines * 1e3:.2f} us a line), bound "
-        f"{bound:.4f} ms ({by}), share {bound / ms:.4f}; graphed twin "
-        f"{ms_twin:.1f} ms, equal bit for bit")
-    slabs = [(iz, 0) for iz in range(hk.nz)]
+        f"lines) {ms:.4f} ms ({ms / lines * 1e3:.2f} us a line; K1 "
+        f"{k1_line_us:.2f} us a line step of its pass), bound {bound:.4f} "
+        f"ms ({by}), share {bound / ms:.4f}; graphed twin {ms_twin:.1f} "
+        f"ms, equal bit for bit")
+    # the refreshed x-sweep of the four slabs: one launch, then the
+    # per-line schedule on the same slabs
+    slabs = tuple((iz, 0) for iz in range(hk.nz))
+    for s in slabs:  # the timed z-sweeps moved slab 1 on
+        hk.t[s].copy_(hp.t[s])
+    ms_twin_x, _ = time_host(lambda: hp.sweep(slabs, "x", False, False,
+                                              True))
+    l0 = cuda_sweep.SLAB_LAUNCHES
     hk.sweep(slabs, "x", False, False, True)
-    bound_x = hk.kernels[tuple(slabs), "x"]
-    line_ms = time_events(lambda: bound_x.launch(250, 1, 1, 249, False), 50)
-    log(f"  K5 one line of the refreshed x-sweep, 4 slabs x 31 sources: "
-        f"{line_ms * 1e3:.2f} us a launch")
+    n_x = cuda_sweep.SLAB_LAUNCHES - l0
+    worst_x = halo_diff(hp, hk, "K5's refreshed x-sweep at the weld")
+    check(n_x == 1, f"the refreshed x-sweep took {n_x} K5 launches, not 1")
+    lay = hk.kernels[slabs, "x"].layout
+    ms_x = time_events(lambda: hk.sweep(slabs, "x", False, False, True), 5)
+    bound_x, by_x = slab_bound(hk, slabs)
+    lines_x = hk.t[k].shape[-1]
+    per = cuda_sweep.SlabSweep(
+        [hk.t[s] for s in slabs], [hk.f[s] for s in slabs],
+        [hk.packs[s] for s in slabs], "x",
+        [hk.geometry(s, "x") for s in slabs], chain(len(slabs)),
+        per_line=True)
+    ms_per = time_events(lambda: per.run(False, False), 3)
+    line_ms = time_events(lambda: per.launch(250, 1, 1, 249, False), 50)
+    log(f"  K5 the refreshed x-sweep, 4 slabs x {B} sources ({lines_x} "
+        f"lines, {lay}): one launch {ms_x:.4f} ms ({ms_x / lines_x * 1e3:.2f}"
+        f" us a line), bound {bound_x:.4f} ms ({by_x}), share "
+        f"{bound_x / ms_x:.4f}; graphed twin {ms_twin_x:.1f} ms, max abs "
+        f"{worst_x}; the per-line schedule {ms_per:.4f} ms "
+        f"({ms_per / ms_x:.1f} x), a one-line launch {line_ms * 1e3:.2f} us")
     rounds = {}
     for kind in ("1d", "2d"):
         mesh, axis = virtual_mesh(device, kind)
@@ -3501,14 +3616,26 @@ def phase_halo_weld(inputs, ttfs, k1_ms, device):
         copies, nbytes = h.copies - c0, h.copy_bytes - b0
         n_launch = cuda_sweep.SLAB_LAUNCHES - l0
         r_ms = time_events(lambda: block(h, 1, False), 3)
+        r_bound, r_by = slab_bound(h, h.keys, sweeps=4)
         log(f"  halo round on {kind}: {r_ms:.3f} ms ({r_ms / k1_ms:.2f} x "
-            f"K1's {k1_ms:.3f} ms pass), {n_launch} K5 launches, {copies} "
+            f"K1's {k1_ms:.3f} ms pass), bound {r_bound:.4f} ms ({r_by}), "
+            f"share {r_bound / r_ms:.4f}, {n_launch} K5 launches, {copies} "
             f"exchange copies, {nbytes} bytes")
-        rounds[kind] = dict(ms=r_ms, k5_launches=n_launch, copies=copies,
-                            copy_bytes=nbytes)
+        check(n_launch == ROUND_LAUNCHES[kind], f"a halo round on {kind} "
+              f"launched K5 {n_launch} times, not {ROUND_LAUNCHES[kind]}")
+        rounds[kind] = dict(ms=r_ms, bound_ms=r_bound, bound_by=r_by,
+                            share=r_bound / r_ms, k5_launches=n_launch,
+                            copies=copies, copy_bytes=nbytes)
     return dict(solves=out, slab_sweep=dict(
         ms=ms, plain_ms=ms_twin, bound_ms=bound, bound_by=by, lines=lines,
-        us_per_line=ms / lines * 1e3, shape=list(hk.t[k].shape)),
+        us_per_line=ms / lines * 1e3, share=bound / ms,
+        shape=list(hk.t[k].shape), k1_us_per_line=k1_line_us),
+        refreshed_x_sweep=dict(
+            ms=ms_x, plain_ms=ms_twin_x, bound_ms=bound_x, bound_by=by_x,
+            share=bound_x / ms_x, lines=lines_x,
+            us_per_line=ms_x / lines_x * 1e3, launches=n_x,
+            max_abs_err=worst_x, layout=lay._asdict(),
+            per_line_ms=ms_per),
         us_per_line_launch=line_ms * 1e3, rounds=rounds, k1_pass_ms=k1_ms)
 
 
@@ -3612,7 +3739,9 @@ def phase_halo_facade(device):
             t_plain = tmat
     log(f"  facade with grid_mesh: {walls['mesh']:.4f} s warm (plain facade "
         f"{walls['plain']:.4f} s); launches and plain-twin counts: {counts}")
-    check(counts["slab_sweep"] > 0, "the facade with grid_mesh launched no K5")
+    want = WELD_HALO_ROUNDS * ROUND_LAUNCHES["1d"]
+    check(counts["slab_sweep"] == want, f"the facade with grid_mesh launched "
+          f"K5 {counts['slab_sweep']} times, not {want}")
     check_counts(counts, "the facade with grid_mesh")
     traced = t_plain > 0
     check(np.array_equal(t_mesh > 0, traced) and bool(np.isfinite(t_mesh).all()),
@@ -3929,12 +4058,16 @@ def main():
         "also_replaces": "alifmm_tpu/parallel/shard.py:302, :403 (the "
                          "sweeps of _halo_jacobi_block and _halo_block2d)",
         "launches": halo_facade["counts"]["slab_sweep"],
-        "max_abs_err": halo_worst,
+        "max_abs_err": max(halo_worst,
+                           halo_weld["refreshed_x_sweep"]["max_abs_err"]),
         **{k: s5[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "timed": "one z-sweep of a slab of the weld's final stage",
+        "share": s5["share"],
         "slab_shape": s5["shape"],
         "us_per_line": s5["us_per_line"],
+        "k1_us_per_line": s5["k1_us_per_line"],
+        "refreshed_x_sweep": halo_weld["refreshed_x_sweep"],
         "us_per_line_launch": halo_weld["us_per_line_launch"],
         "rounds": halo_weld["rounds"],
         "k1_pass_ms": halo_weld["k1_pass_ms"],

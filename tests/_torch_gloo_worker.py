@@ -46,6 +46,7 @@ def unsharded():
                                  -1.0, CFG)
 
 
+@torch.inference_mode()
 def main(addr, world, rank, out):
     torch.set_num_threads(1)
     multihost.TIMEOUT_S = 60

@@ -2,7 +2,8 @@
 K1 (csrc/sweep.cu, its interpolated table lookup included), the ray
 kernels K2 and K3 (csrc/rays.cu), with
 their fine-path instantiations (nearest-point tap, exact materials,
-fast-stride mask), and K4, the descent march (csrc/descent.cu).
+fast-stride mask), K4, the descent march (csrc/descent.cu), and K5, the
+slab sweep of the halo solves (csrc/sweep.cu).
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip without a
 card; on the card, ``python3 chip_smoke.py`` runs the same comparisons (it
@@ -11,7 +12,8 @@ tests/test_torch_kernel.py`` runs this file with ``--noconftest``
 (tests/conftest.py imports jax, which the card's host does not have).
 Tolerances: 1e-12 (float64) and 1e-5 (float32) relative per sweep pass,
 segment, relaxation wave and ray time; the march as stated in
-chip_smoke.py.  The kernels are expected to equal the twins."""
+chip_smoke.py; K5 max abs 0.  The kernels are expected to equal the
+twins."""
 
 import pytest
 import torch
@@ -144,3 +146,14 @@ def test_k1_wrapper_rejects_mismatched_planes(device):
     with pytest.raises(ValueError):
         cuda_sweep.sweep_pass(tt[:, :-1], model, fixed[:, :-1], False,
                               packed=packed)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.HALO_CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k5_matches_plain_twin(device, dtype, case):
+    """K5 on virtual ranks of the card against its graphed twin, bit for
+    bit, halos included: every directional sweep of a halo pass (a
+    refreshed sweep in one launch), min and replace, in slab_config's
+    layout and the case's forced ones (c = 1, ragged tiles, the per-line
+    schedule), then a halo pass and the wrapper."""
+    chip_smoke.check_halo_case(case, dtype, device)

@@ -12,7 +12,9 @@ Tolerances: a sharded solve or trace runs the same operations per source
 or ray and the same joint stop as the unsharded one, so it equals it bit
 for bit; against JAX 1e-9 relative (same float64 operations in another
 framework); the facade with a grid mesh against the plain facade 1e-6
-(tests/test_api_grid_mesh.py's bound; equal in fact)."""
+(tests/test_api_grid_mesh.py's bound; equal in fact).  JAX's sharded
+solve and facade run in a second process while the port runs
+(tests/_jax_side.py)."""
 
 import os
 import socket
@@ -40,6 +42,7 @@ from alifmm_tpu_torch.ops.stencils import INF
 from alifmm_tpu_torch.parallel import Mesh, multihost, shard
 from alifmm_tpu_torch.utils import progress as tprogress
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+import _jax_side
 import _torch_gloo_worker as gloo_worker
 
 RTOL_JAX = 1e-9
@@ -90,14 +93,59 @@ def _unsharded(tm, scx, scz):
                                  tsolver.SolveConfig(**BUDGET))
 
 
+# the world's eight sources (two on edges)
+WORLD_SCX = DNX * np.array([3.0, 16.0, 11.0, 0.0, 7.0, 19.0, 15.0, 5.0])
+WORLD_SCZ = DNX * np.array([2.0, 13.0, 9.0, 12.0, 15.0, 4.0, 0.0, 10.0])
+# the facade test's three sources and solve options
+FACADE_SCX = DNX * np.array([6.0, 16.0, 13.0])
+FACADE_SCZ = DNX * np.array([0.0, 15.0, 10.0])
+FACADE_OPTS = dict(BUDGET, final_rel_tol=3e-3, final_max_polish=4)
+
+
+def _jax_sharded():
+    """JAX's solve_ttf_sharded of the world's sources on four devices."""
+    jm, _ = _models()
+    jmesh = JMesh(np.array(jax.devices()[:4]), ("src",))
+    return np.asarray(jshard.solve_ttf_sharded(
+        jm, WORLD_SCX, WORLD_SCZ, jmesh,
+        cfg=jsolver.SolveConfig(**BUDGET, sweep_block=1, patch_block=1),
+        stages=STAGES, seed_side=SEED_SIDE))
+
+
+def _jax_facade():
+    """The JAX facade with four z slabs: ``update`` of the facade test's
+    model and sources, with its patch stages cut as the test cuts them."""
+    saved = jsolver._COARSE_STAGES, jsolver._COARSE_SEED_SIDE
+    jsolver._COARSE_STAGES, jsolver._COARSE_SEED_SIDE = STAGES, SEED_SIDE
+    alifmm_tpu.tqdm_disable = True
+    try:
+        veln, velpn, vel_map = _arrays(*SHAPE)
+        jmesh = JMesh(np.array(jax.devices()[:4]), ("gz",))
+        return alifmm_tpu.ALI_FMM(
+            veln, velpn, vel_map, FACADE_SCX, FACADE_SCZ, dtype=np.float64,
+            grid_mesh=jmesh, dnx=DNX,
+            solve_opts=dict(FACADE_OPTS, sweep_block=1,
+                            patch_block=1)).update(veln, velpn, vel_map)
+    finally:
+        jsolver._COARSE_STAGES, jsolver._COARSE_SEED_SIDE = saved
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The module's JAX references, computed in a second process while the
+    port runs."""
+    with _jax_side.references({"sharded": _jax_sharded,
+                               "facade": _jax_facade}) as refs:
+        yield refs
+
+
 @pytest.fixture(scope="module")
 def world():
-    """Both packages' models, eight sources (two on edges) and the port's
+    """Both packages' models, the world's eight sources and the port's
     unsharded staged solve of them."""
     jm, tm = _models()
-    scx = DNX * np.array([3.0, 16.0, 11.0, 0.0, 7.0, 19.0, 15.0, 5.0])
-    scz = DNX * np.array([2.0, 13.0, 9.0, 12.0, 15.0, 4.0, 0.0, 10.0])
-    return jm, tm, scx, scz, _unsharded(tm, scx, scz)
+    return (jm, tm, WORLD_SCX, WORLD_SCZ,
+            _unsharded(tm, WORLD_SCX, WORLD_SCZ))
 
 
 def _src_mesh(kind):
@@ -107,23 +155,18 @@ def _src_mesh(kind):
 
 
 @pytest.mark.parametrize("kind", ["4 ranks", "hybrid 2 x 2"])
-def test_solve_ttf_sharded_matches(world, kind):
+def test_solve_ttf_sharded_matches(jax_refs, world, kind):
     """Eight sources on four source ranks (and on the hybrid (src, gz)
     mesh a multi-process job uses, two source ranks): equal to the
     unsharded solve, the final stage's joint stop included; within 1e-9
     of JAX's."""
-    jm, tm, scx, scz, single = world
+    _, tm, scx, scz, single = world
     got = shard.solve_ttf_sharded(tm, scx, scz, _src_mesh(kind),
                                   cfg=tsolver.SolveConfig(**BUDGET),
                                   stages=STAGES, seed_side=SEED_SIDE)
     assert torch.equal(got, single)
     if kind == "4 ranks":
-        jmesh = JMesh(np.array(jax.devices()[:4]), ("src",))
-        want = jshard.solve_ttf_sharded(
-            jm, scx, scz, jmesh,
-            cfg=jsolver.SolveConfig(**BUDGET, sweep_block=1, patch_block=1),
-            stages=STAGES, seed_side=SEED_SIDE)
-        _close(got.numpy(), want, RTOL_JAX)
+        _close(got.numpy(), jax_refs["sharded"].result(), RTOL_JAX)
 
 
 def test_solve_ttf_sharded_pads_odd_batch(world):
@@ -254,6 +297,7 @@ def test_two_gloo_processes_match_unsharded(tmp_path):
         stderr=subprocess.STDOUT) for r in range(2)]
     logs = []
     try:
+        want = gloo_worker.unsharded().numpy()  # while the processes run
         for p in procs:
             logs.append(p.communicate(timeout=gloo_worker.JOIN_TIMEOUT_S)[0])
     finally:
@@ -263,7 +307,6 @@ def test_two_gloo_processes_match_unsharded(tmp_path):
                 p.wait()
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log.decode(errors="replace")[-3000:]
-    want = gloo_worker.unsharded().numpy()
     for r in range(2):
         np.testing.assert_array_equal(np.load(tmp_path / f"rank{r}.npy"),
                                       want)
@@ -273,34 +316,24 @@ def test_two_gloo_processes_match_unsharded(tmp_path):
 # the facade with a grid mesh, and stage_reporter
 # --------------------------------------------------------------------- #
 
-def test_facade_grid_mesh_matches(world, monkeypatch):
+def test_facade_grid_mesh_matches(jax_refs, monkeypatch):
     """ALI_FMM(grid_mesh=4 z slabs).update equals the plain facade (within
     1e-6, as JAX is held) and the JAX facade with its mesh within 1e-9."""
-    for mod in (jsolver, tsolver):
-        monkeypatch.setattr(mod, "_COARSE_STAGES", STAGES)
-        monkeypatch.setattr(mod, "_COARSE_SEED_SIDE", SEED_SIDE)
-    monkeypatch.setattr(alifmm_tpu, "tqdm_disable", True, raising=False)
+    monkeypatch.setattr(tsolver, "_COARSE_STAGES", STAGES)
+    monkeypatch.setattr(tsolver, "_COARSE_SEED_SIDE", SEED_SIDE)
     monkeypatch.setattr(alifmm_tpu_torch, "tqdm_disable", True)
     veln, velpn, vel_map = _arrays(*SHAPE)
-    scx = DNX * np.array([6.0, 16.0, 13.0])
-    scz = DNX * np.array([0.0, 15.0, 10.0])
-    opts = dict(BUDGET, final_rel_tol=3e-3, final_max_polish=4)
-    kw = dict(dnx=DNX, solve_opts=opts)
+    kw = dict(dnx=DNX, solve_opts=FACADE_OPTS)
     got = alifmm_tpu_torch.ALI_FMM(
-        veln, velpn, vel_map, scx, scz, dtype=torch.float64, device="cpu",
-        grid_mesh=Mesh([CPU] * 4, ("gz",)), **kw).update(veln, velpn,
-                                                          vel_map)
+        veln, velpn, vel_map, FACADE_SCX, FACADE_SCZ, dtype=torch.float64,
+        device="cpu", grid_mesh=Mesh([CPU] * 4, ("gz",)), **kw).update(
+            veln, velpn, vel_map)
     plain = alifmm_tpu_torch.ALI_FMM(
-        veln, velpn, vel_map, scx, scz, dtype=torch.float64, device="cpu",
-        **kw).update(veln, velpn, vel_map)
+        veln, velpn, vel_map, FACADE_SCX, FACADE_SCZ, dtype=torch.float64,
+        device="cpu", **kw).update(veln, velpn, vel_map)
     assert got.shape == plain.shape == (3,) + SHAPE
     _close(got, plain, RTOL_FACADE)
-    jmesh = JMesh(np.array(jax.devices()[:4]), ("gz",))
-    want = alifmm_tpu.ALI_FMM(
-        veln, velpn, vel_map, scx, scz, dtype=np.float64, grid_mesh=jmesh,
-        dnx=DNX, solve_opts=dict(opts, sweep_block=1, patch_block=1)).update(
-            veln, velpn, vel_map)
-    _close(got, want, RTOL_JAX)
+    _close(got, jax_refs["facade"].result(), RTOL_JAX)
 
 
 class _StubBar:

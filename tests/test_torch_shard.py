@@ -11,7 +11,8 @@ for point, so with matched budgets (or the same residual-driven stop)
 they equal the port's single-device solve bit for bit; against JAX 1e-9
 relative (same float64 operations in another framework), 1e-10 for one
 sweep; against a differently stopped single-device solve 1e-6, as
-tests/test_shard.py holds JAX."""
+tests/test_shard.py holds JAX.  JAX's halo solves run in a second process
+while the port runs (tests/_jax_side.py)."""
 
 import functools
 
@@ -34,6 +35,7 @@ from alifmm_tpu_torch.ops import sweep as tsweep
 from alifmm_tpu_torch.ops.stencils import INF
 from alifmm_tpu_torch.parallel import Mesh, shard
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+import _jax_side
 
 RTOL_JAX = 1e-9
 RTOL_SWEEP = 1e-10
@@ -203,21 +205,116 @@ def test_slab_refresh_splices_neighbours():
 
 
 # --------------------------------------------------------------------- #
+# slab_config: K5's layout rule (pure Python; 132 SMs, the H100's)
+# --------------------------------------------------------------------- #
+
+SMS = 132
+# (B, n_blocks, W, keywords) -> (per_line, blocks a cluster, c, G)
+SLAB_LAYOUTS = {
+    # the weld's four z slabs (424 / 4 + 4 rows): the refreshed x-sweep's
+    # four blocks in one cluster of 4 x 2 CTAs; the slab z-sweeps alone
+    "weld 4 slabs x": ((31, 4, 110, {}), (False, 4, 2, 4)),
+    "weld 4 slabs z": ((31, 1, 500, dict(refresh=False)), (False, 1, 8, 4)),
+    # the weld's 2 x 2 blocks (212 + 4 rows, 250 + 4 columns)
+    "weld 2x2 z": ((31, 2, 254, {}), (False, 2, 4, 4)),
+    "weld 2x2 x": ((31, 2, 216, {}), (False, 2, 4, 4)),
+    # the fine weld (s = 9) on four slabs: 3808 / 4 + 4 rows
+    "fine 4 slabs x": ((31, 4, 956, {}), (False, 4, 2, 4)),
+    # a few sources: latency-bound, G = 8
+    "48x56 4 slabs x": ((3, 4, 16, {}), (False, 4, 2, 8)),
+    # more than 8 blocks on one device, blocks on two devices, or forced:
+    # the per-line schedule, a cluster a block
+    "9 slabs": ((31, 9, 110, {}), (True, 1, 1, 4)),
+    "4 slabs on 2 devices": ((31, 4, 110, dict(devices=2)), (True, 1, 2, 4)),
+    "forced per line": ((31, 4, 110, dict(per_line=True)), (True, 1, 2, 4)),
+    # forced c and G (the checks): ragged tiles in a cluster of 6 CTAs
+    "forced c=3": ((3, 2, 32, dict(cluster=3, lanes=4)), (False, 2, 3, 4)),
+    # a line of blocks too wide for one cluster's tiles
+    "4 slabs 2100 wide": ((8, 4, 2100, {}), (True, 1, 8, 4)),
+}
+
+
+@pytest.mark.parametrize("name", list(SLAB_LAYOUTS))
+def test_slab_config_layout(name):
+    from alifmm_tpu_torch.ops import cuda_sweep
+
+    (B, n, W, kw), want = SLAB_LAYOUTS[name]
+    assert tuple(cuda_sweep.slab_config(B, n, W, SMS, **kw)) == want
+
+
+@pytest.mark.parametrize("kw", [dict(refresh=False), dict(cluster=8),
+                                dict(lanes=2)])
+def test_slab_config_rejects(kw):
+    """Lines past 8 tiles of MAX_TILE points, a forced cluster past 8
+    CTAs' tiles, lanes K5 is not built for."""
+    from alifmm_tpu_torch.ops import cuda_sweep
+
+    W = 8 * cuda_sweep.MAX_TILE + 1 if "lanes" not in kw else 110
+    with pytest.raises(ValueError):
+        cuda_sweep.slab_config(31, 1, W, SMS, **kw)
+
+
+# --------------------------------------------------------------------- #
 # solve_halo_sharded
 # --------------------------------------------------------------------- #
 
 FIXED_BUDGET = dict(n_outer=3, n_inner=1, polish=1)
 RESIDUAL = dict(n_inner=1, polish=1, rel_tol=3e-3, max_outer=8,
                 max_polish=4)
+# the weldish model's sources: an interior one and one on slab 0's last row
+WELDISH_SOURCES = [(16, 20), (7, 3)]
+
+
+def _jax_halo(kind, budget, qsv=False):
+    """JAX's solve_halo_sharded on the 32 x 40 weldish model's two sources
+    (``qsv``: the qSV model's one source, unbatched): (field, passes,
+    converged)."""
+    if qsv:
+        jm = _qsv(32, 40)[0]
+        tt, fixed = (a[0] for a in _seeds(32, 40, [(16, 20)]))
+    else:
+        jm = _weldish(32, 40)[0]
+        tt, fixed = _seeds(32, 40, WELDISH_SOURCES)
+    _, jmesh, axis = _meshes(kind)
+    want, info = jshard.solve_halo_sharded(
+        jnp.asarray(tt), jm, jnp.asarray(fixed), jmesh, axis=axis,
+        return_info=True, **budget)
+    return np.asarray(want), int(info.passes), bool(info.converged)
+
+
+def _jax_ttf(kind):
+    """JAX's solve_ttf_halo on ``ttf_world``'s model and sources."""
+    jm = _isotropic(*TTF_SHAPE)[0]
+    _, jmesh, axis = _meshes(kind)
+    jcfg = jsolver.SolveConfig(**CFG, sweep_block=1, patch_block=1)
+    want, info = jshard.solve_ttf_halo(jm, TTF_SCX, TTF_SCZ, jmesh,
+                                       axis=axis, cfg=jcfg,
+                                       stages=SMALL_STAGES,
+                                       seed_side=SMALL_SEED,
+                                       return_info=True)
+    return np.asarray(want), int(info.passes), bool(info.converged)
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The module's JAX halo solves, in the order the tests take them,
+    computed in a second process while the port runs."""
+    jobs = {f"fixed {k}": functools.partial(_jax_halo, k, FIXED_BUDGET)
+            for k in ("1d", "2d")}
+    jobs["qsv"] = functools.partial(_jax_halo, "1d", FIXED_BUDGET, True)
+    jobs["residual"] = functools.partial(_jax_halo, "1d", RESIDUAL)
+    jobs.update({f"ttf {k}": functools.partial(_jax_ttf, k)
+                 for k in ("1d", "2d")})
+    with _jax_side.references(jobs) as refs:
+        yield refs
 
 
 @pytest.fixture(scope="module")
 def weldish():
-    """The 32 x 40 random-orientation model, two sources (an interior one
-    and one on slab 0's last row), and the port's single-device solve
-    with the fixed budget."""
+    """The 32 x 40 random-orientation model, its two sources, and the
+    port's single-device solve with the fixed budget."""
     jm, tm = _weldish(32, 40)
-    tt, fixed = _seeds(32, 40, [(16, 20), (7, 3)])
+    tt, fixed = _seeds(32, 40, WELDISH_SOURCES)
     single, info = tsweep.solve_fixpoint(
         torch.from_numpy(tt), tm, torch.from_numpy(fixed), rel_tol=0.0,
         max_passes=FIXED_BUDGET["n_outer"],
@@ -226,55 +323,50 @@ def weldish():
 
 
 @pytest.mark.parametrize("kind", ["1d", "2d"])
-def test_halo_fixed_budget_equals_single_device(weldish, kind):
+def test_halo_fixed_budget_equals_single_device(jax_refs, weldish, kind):
     """Matched budgets: equal to the port's single-device solve_fixpoint
     (rel_tol 0: every phase-1 pass runs) bit for bit, and to JAX's
     solve_halo_sharded within 1e-9."""
-    jm, tm, tt, fixed, single = weldish
-    mesh, jmesh, axis = _meshes(kind)
+    _, tm, tt, fixed, single = weldish
+    mesh, _, axis = _meshes(kind)
     got, info = shard.solve_halo_sharded(
         torch.from_numpy(tt), tm, torch.from_numpy(fixed), mesh, axis=axis,
         return_info=True, **FIXED_BUDGET)
     assert torch.equal(got, single), float((got - single).abs().max())
-    want, winfo = jshard.solve_halo_sharded(
-        jnp.asarray(tt), jm, jnp.asarray(fixed), jmesh, axis=axis,
-        return_info=True, **FIXED_BUDGET)
+    want, passes, converged = jax_refs[f"fixed {kind}"].result()
     _close(got.numpy(), want, RTOL_JAX)
-    assert info.passes == int(winfo.passes)
-    assert info.converged == bool(winfo.converged)
+    assert info.passes == passes
+    assert info.converged == converged
 
 
-def test_halo_fixed_budget_qsv_anisotropic():
+def test_halo_fixed_budget_qsv_anisotropic(jax_refs):
     """The qSV model of tests/test_shard.py (an interpolated table column,
     rotating orientations) on four slabs: equal to the single-device
     solve, within 1e-9 of JAX's halo solve."""
-    jm, tm = _qsv(32, 40)
+    tm = _qsv(32, 40)[1]
     tt, fixed = _seeds(32, 40, [(16, 20)])
     single, _ = tsweep.solve_fixpoint(
         torch.from_numpy(tt), tm, torch.from_numpy(fixed), rel_tol=0.0,
         max_passes=FIXED_BUDGET["n_outer"],
         polish_passes=FIXED_BUDGET["polish"])
-    mesh, jmesh, axis = _meshes("1d")
+    mesh, _, axis = _meshes("1d")
     got = shard.solve_halo_sharded(torch.from_numpy(tt[0]), tm,
                                    torch.from_numpy(fixed[0]), mesh,
                                    axis=axis, **FIXED_BUDGET)
     assert got.shape == (32, 40)
     assert torch.equal(got, single[0])
-    want = jshard.solve_halo_sharded(jnp.asarray(tt[0]), jm,
-                                     jnp.asarray(fixed[0]), jmesh, axis=axis,
-                                     **FIXED_BUDGET)
-    _close(got.numpy(), want, RTOL_JAX)
+    _close(got.numpy(), jax_refs["qsv"].result()[0], RTOL_JAX)
 
 
-def test_halo_residual_driven_matches(weldish):
+def test_halo_residual_driven_matches(jax_refs, weldish):
     """The residual-driven stop: the same rule as the single-device
     solve_fixpoint with a residual-driven polish, on the same deltas, so
     equal bit for bit with equal SolveInfo; within 1e-9 of JAX's.  (On an
     exactly symmetric isotropic seed the replace passes of the two
     packages part at tied stencil choices, compiled JAX contracting
     multiply-adds: hence the random-orientation model.)"""
-    jm, tm, tt, fixed, _ = weldish
-    mesh, jmesh, axis = _meshes("1d")
+    _, tm, tt, fixed, _ = weldish
+    mesh, _, axis = _meshes("1d")
     got, info = shard.solve_halo_sharded(
         torch.from_numpy(tt), tm, torch.from_numpy(fixed), mesh, axis=axis,
         return_info=True, **RESIDUAL)
@@ -285,12 +377,9 @@ def test_halo_residual_driven_matches(weldish):
         max_polish_passes=RESIDUAL["max_polish"])
     assert torch.equal(got, single)
     assert info == sinfo
-    want, winfo = jshard.solve_halo_sharded(
-        jnp.asarray(tt), jm, jnp.asarray(fixed), jmesh, axis=axis,
-        return_info=True, **RESIDUAL)
+    want, passes, converged = jax_refs["residual"].result()
     _close(got.numpy(), want, RTOL_JAX)
-    assert (info.passes, info.converged) == (int(winfo.passes),
-                                             bool(winfo.converged))
+    assert (info.passes, info.converged) == (passes, converged)
 
 
 def test_halo_rejects_uneven_split(weldish):
@@ -313,6 +402,8 @@ CFG = dict(patch_max_passes=2, final_max_passes=8, polish_passes=1,
 # the bottom-right corner
 TTF_SHAPE = (30, 39)
 TTF_SOURCES = [(20.0, 15.0), (5.0, 7.0), (36.0, 28.0)]
+TTF_SCX = DNX * np.array([s[0] for s in TTF_SOURCES])
+TTF_SCZ = DNX * np.array([s[1] for s in TTF_SOURCES])
 
 
 @pytest.fixture(scope="module")
@@ -320,8 +411,7 @@ def ttf_world():
     """The isotropic 30 x 39 model, its sources and the port's
     single-device staged solve with the same budget."""
     jm, tm = _isotropic(*TTF_SHAPE)
-    scx = DNX * np.array([s[0] for s in TTF_SOURCES])
-    scz = DNX * np.array([s[1] for s in TTF_SOURCES])
+    scx, scz = TTF_SCX, TTF_SCZ
     single, info = tsolver._staged_solve(
         tm, torch.from_numpy(scx), torch.from_numpy(scz), SMALL_STAGES,
         SMALL_SEED, -1.0, tsolver.SolveConfig(**CFG), return_info=True)
@@ -329,13 +419,13 @@ def ttf_world():
 
 
 @pytest.mark.parametrize("kind", ["1d", "2d"])
-def test_ttf_halo_pads_and_matches(ttf_world, kind):
+def test_ttf_halo_pads_and_matches(jax_refs, ttf_world, kind):
     """The telescoped halo solve with rows (and columns) padded to the
     blocks: within 1e-6 of the port's single-device staged solve (equal
     in fact: the same residual-driven stop on the same deltas), within
     1e-9 of JAX's solve_ttf_halo with an equal SolveInfo."""
-    jm, tm, scx, scz, single, sinfo = ttf_world
-    mesh, jmesh, axis = _meshes(kind)
+    _, tm, scx, scz, single, sinfo = ttf_world
+    mesh, _, axis = _meshes(kind)
     got, info = shard.solve_ttf_halo(tm, scx, scz, mesh, axis=axis,
                                      cfg=tsolver.SolveConfig(**CFG),
                                      stages=SMALL_STAGES,
@@ -343,11 +433,6 @@ def test_ttf_halo_pads_and_matches(ttf_world, kind):
     assert got.shape == (3,) + TTF_SHAPE
     _close(got.numpy(), single.numpy(), RTOL_STOP)
     assert torch.equal(got, single) and info == sinfo
-    jcfg = jsolver.SolveConfig(**CFG, sweep_block=1, patch_block=1)
-    want, winfo = jshard.solve_ttf_halo(jm, scx, scz, jmesh, axis=axis,
-                                        cfg=jcfg, stages=SMALL_STAGES,
-                                        seed_side=SMALL_SEED,
-                                        return_info=True)
+    want, passes, converged = jax_refs[f"ttf {kind}"].result()
     _close(got.numpy(), want, RTOL_JAX)
-    assert (info.passes, info.converged) == (int(winfo.passes),
-                                             bool(winfo.converged))
+    assert (info.passes, info.converged) == (passes, converged)
