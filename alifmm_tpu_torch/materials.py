@@ -20,6 +20,8 @@ from functools import lru_cache as _lru_cache
 import numpy as np
 import torch
 
+from .ops._math import sqrt
+
 __all__ = [
     "group_velocity_christoffel",
     "phase_velocity_christoffel",
@@ -48,7 +50,7 @@ def group_velocity_christoffel(angle_deg, c22, c23, c33, c44, rho,
     near_axis = (m90 < 0.01) | (m90 > 90.0 - 0.01)
     near_90 = torch.abs(angle - 90.0) < 1.0
     lam_axis = torch.where(near_90, c33, c22)
-    v_axis = 1000.0 * vel_scale * torch.sqrt(lam_axis / rho)
+    v_axis = 1000.0 * vel_scale * sqrt(lam_axis / rho)
 
     # angle replaced by 45 deg where the axis branch is taken, so tan()
     # stays finite and no NaN leaks through the select
@@ -57,7 +59,7 @@ def group_velocity_christoffel(angle_deg, c22, c23, c33, c44, rho,
     A = c22 + c33 - 2.0 * c44
     B = (c23 + c44) * (tan_ang - 1.0 / tan_ang)
     C = c22 - c33
-    disc = torch.sqrt(torch.clamp_min(B * B + A * A - C * C, 0.0))
+    disc = sqrt(torch.clamp_min(B * B + A * A - C * C, 0.0))
     denom = C - A
     denom = torch.where(denom == 0.0, torch.finfo(angle.dtype).tiny, denom)
     sign = torch.where(ang_safe < 90.0, -1.0, 1.0).to(angle.dtype)
@@ -71,7 +73,7 @@ def group_velocity_christoffel(angle_deg, c22, c23, c33, c44, rho,
     v_gen = (
         1000.0
         * vel_scale
-        * torch.sqrt(torch.clamp_min(lam, 0.0) / rho)
+        * sqrt(torch.clamp_min(lam, 0.0) / rho)
         / torch.cos(ang_safe * _DEG2RAD - phase_ang)
     )
     return torch.where(near_axis, v_axis, v_gen)
@@ -87,8 +89,8 @@ def phase_velocity_christoffel(angle_deg, c22, c23, c33, c44, rho,
     B = ca * sa * (c23 + c44)
     C = ca * ca * c44 + sa * sa * c33
     AmC = A - C
-    lam = 0.5 * (A + C + torch.sqrt(AmC * AmC + 4.0 * B * B))
-    return 1000.0 * vel_scale * torch.sqrt(lam / rho)
+    lam = 0.5 * (A + C + sqrt(AmC * AmC + 4.0 * B * B))
+    return 1000.0 * vel_scale * sqrt(lam / rho)
 
 
 def generate_group_vel_curve(c22, c23, c33, c44, density):

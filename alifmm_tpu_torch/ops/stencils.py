@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 import torch
 
 from .. import grid as gridlib
+from ._math import sqrt
 
 INF = 1.0e9
 _BIG_DIFF = 1.0e30
@@ -90,7 +91,7 @@ def _wavefront_vec_dist(xA, zA, xB, zB, xC, zC, yA, yB, yC):
     dx = xB - xpos
     dz = zB - zpos
     zero_ang = degen | (dx == 0.0)
-    norm = torch.sqrt(dx * dx + dz * dz)
+    norm = sqrt(dx * dx + dz * dz)
     norm_safe = torch.where(norm == 0.0, 1.0, norm)
     dist = torch.abs(dz * xB - dx * zB) / norm_safe
     dist = torch.where(degen | (norm == 0.0), -1.0, dist)
@@ -191,7 +192,7 @@ def _quad_solve(a, b, c, tref, tdiv, clamp_disc):
     if clamp_disc:
         ok = torch.ones_like(ok)
     rd1 = torch.clamp_min(rd1, 0.0)
-    t = (tref + (-b + torch.sqrt(rd1)) / (2.0 * a)) / tdiv
+    t = (tref + (-b + sqrt(rd1)) / (2.0 * a)) / tdiv
     return t, ok
 
 
@@ -299,7 +300,7 @@ def _knight_family(nbr, known, inb, slown, dnx, cycle, causal=False):
         c = torch.where(both, tq * tq + tp * tp - 2.0 * us * us, -(us * us))
         tref = torch.where(both, 0.0, torch.where(kp, tp, tq))
         rd1 = torch.clamp_min(b * b - 4.0 * a * c, 0.0)
-        t = tref + (-b + torch.sqrt(rd1)) / (2.0 * a)
+        t = tref + (-b + sqrt(rd1)) / (2.0 * a)
         ok = kp | kq
         if causal:
             imax = torch.maximum(torch.where(kp, tp, -INF),

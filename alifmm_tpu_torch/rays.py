@@ -48,6 +48,7 @@ import torch
 from . import grid as gridlib
 from . import materials as mats
 from .ops import cuda_rays
+from .ops._math import sqrt
 
 __all__ = ["segment_time", "segment_time_quad", "segment_time_quad3",
            "ray_times", "relax_rays", "trace_rays", "trace_rays_descent",
@@ -209,7 +210,7 @@ def segment_time(model: gridlib.Model, mat_flat, x1, y1, x2, y2,
     dx_zero = dx == 0
     dy_zero = dy == 0
     angle = _angle(dx, dy)
-    length = torch.sqrt(dx * dx + dy * dy)
+    length = sqrt(dx * dx + dy * dy)
 
     shp = torch.broadcast_shapes(x1.shape, x2.shape, y1.shape, y2.shape)
     x1 = x1.expand(shp)
@@ -306,8 +307,8 @@ def _segment_time_walk(model: gridlib.Model, mat_flat, x1, y1, x2, y2,
                             0, X - 1)
         y_pos = torch.clamp(torch.round((prev_y + nyv) / 2).to(torch.int64),
                             0, Z - 1)
-        dist = model.dnx * torch.sqrt((prev_x - nxv) ** 2
-                                      + (prev_y - nyv) ** 2)
+        dist = model.dnx * sqrt((prev_x - nxv) ** 2
+                                + (prev_y - nyv) ** 2)
         dists.append(torch.where(done, 0.0, dist))
         cells.append(y_pos * X + x_pos)
         prev_x = torch.where(done, prev_x, nxv)
@@ -329,7 +330,7 @@ def _simpson_time(model, mat_flat, x1, y1, x2, y2, subgrid_size, fracs,
     ddx = x2 - x1
     ddy = y2 - y1
     angle = _angle(ddx, ddy)
-    dist = torch.sqrt(ddx * ddx + ddy * ddy) / s
+    dist = sqrt(ddx * ddx + ddy * ddy) / s
     acc = None
     for fr, w in zip(fracs, weights):
         xm = x1 + ddx * fr
@@ -402,7 +403,7 @@ def relax_wave_plain(model, mat_flat, xs, ys, lengths, subgrid_size,
     nx, ny = xs[:, 2:], ys[:, 2:]
     tx = nx - px
     ty = ny - py
-    nrm = torch.sqrt(tx * tx + ty * ty)
+    nrm = sqrt(tx * tx + ty * ty)
     nrm = torch.where(nrm == 0.0, 1.0, nrm)
     ux = -ty / nrm
     uy = tx / nrm
@@ -947,7 +948,7 @@ def descent_plain(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
         steps = steps + (~done).to(torch.int64)
         _, gx, gy = _sample_ttf_grad(rec_ttf, last_x, last_y, s, mode,
                                      field)
-        gnorm = torch.sqrt(gx * gx + gy * gy)
+        gnorm = sqrt(gx * gx + gy * gy)
         stalled = gnorm <= 0.0
         gsafe = torch.where(stalled, 1.0, gnorm)
         nx, ny = gx / gsafe, gy / gsafe
@@ -968,7 +969,7 @@ def descent_plain(model: gridlib.Model, mat_flat, rec_ttf, ttf_index,
         dx_r = rec_x - last_x
         dy_r = rec_y - last_y
         near2 = dx_r * dx_r + dy_r * dy_r
-        near = torch.sqrt(near2)
+        near = sqrt(near2)
         off = torch.where(near2 < near_far2, _full(near2, float(s)),
                           _full(near2, h_far))
         snap = near2 < (4.0 * s) ** 2

@@ -29,6 +29,7 @@ import torch
 from . import grid as gridlib
 from . import materials as mats
 from .ops import cuda_sweep
+from .ops._math import sqrt
 from .ops.stencils import INF
 
 __all__ = ["SolveConfig", "solve_ttf", "solve_one", "coarse_stages",
@@ -159,7 +160,7 @@ def _analytic_seed(patch: gridlib.Model, base: gridlib.Model, isz, isx,
         vel = torch.where(p_src != 0, v_tab, v_chr)
     else:
         vel = v_tab
-    tt = patch.dnx * torch.sqrt(dz * dz + dx * dx) / vel
+    tt = patch.dnx * sqrt(dz * dz + dx * dx) / vel
     tt = torch.where(in_seed, tt, INF)
     return tt, in_seed
 

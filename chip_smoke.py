@@ -18,7 +18,12 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    (48 x 56, per-source weld patches of 109 x 109 and 79 x 79, narrow
    5 x 7 and 37 x 131 with ragged and empty width tiles, a tie-heavy
    isotropic 64 x 64) at several launch shapes, and a full fixpoint on
-   48 x 56 (equal pass counts in float64);
+   48 x 56 (equal pass counts in float64).  The eager twin is bound by
+   the host's per-operation cost, so this phase runs in a second process
+   (``chip_smoke.py --k1-twin``, in inference mode), started as soon as
+   ``sweep.cu`` is built: beside the other sources' compilation and the
+   checks that time nothing (4, 4b, 4c, 5b, 11a, 12a), which run first
+   for that reason; its log is printed when it ends, before phase 5;
 4. holds the ray kernels against their plain twins on the card, in
    float64 and float32: the four segment integrators on seeded segments
    over the 48 x 56 and the weld model (``check_segments``), and on
@@ -138,7 +143,8 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    blocks, three z slabs, four source ranks): (12a) the slab sweep kernel
    K5 against its graphed twin ``sweep.slab_sweep``, max abs 0, float64
    and float32, on ``HALO_CASES`` (48 x 56 on four slabs and on 2 x 2
-   blocks, and both with padded rows or columns), in ``slab_config``'s
+   blocks, both with padded rows or columns, and both on a qSV model whose
+   interpolated table column is K5's column mode 2), in ``slab_config``'s
    layouts and in forced ones (four slabs with c = 1 and G = 4, 2 x 2
    with c = 3: ragged tiles, the per-line schedule on both): every
    directional sweep of a halo pass as a bare launch, min and replace, a
@@ -146,8 +152,9 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    through the wrapper ``cuda_sweep.slab_sweep``; (12b)
    ``solve_halo_sharded`` with a
    fixed budget against K1's single-device ``solve_fixpoint`` with the
-   matched budget, max abs 0, on 48 x 56 (four slabs, 2 x 2) and 50 x 56
-   (three slabs, a padded row) in both types, and on the weld's final
+   matched budget, max abs 0, on 48 x 56 and qSV 48 x 56 (four slabs, 2 x
+   2) and 50 x 56 (three slabs, a padded row) in both types, and on the
+   weld's final
    stage (the injected state of its 31 sources at 424 x 500, float32) on
    four slabs and 2 x 2; (12c) ``solve_ttf_halo`` on the weld (its
    budgets, residual-driven) on four slabs and 2 x 2 against the
@@ -164,7 +171,28 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    the end); (12e) the weld slice through ``ALI_FMM(grid_mesh=...)`` (four
    z slabs), a warm-up call and a timed one with every count set to 0
    just before it (K1, 50 K5, one K2 and one K3 launch, no plain pass),
-   its ray times and fields against the plain facade's.
+   its ray times and fields against the plain facade's;
+13. the tutorial notebook's workload (``examples/tutorial_torch.ipynb``,
+   its cells in code, the plots left out) through ``ALI_FMM`` on the card
+   at its own sizes (201 x 201, dnx = 1e-3, three transducers on the top
+   edge, rays at ``subgrid_size=9``, float32), each call a warm-up and a
+   timed run with every count set to 0 just before it: (13a) the
+   velocity-gradient field against the analytic time, within the JAX
+   package's own error on that model (``tests/tutorial_records.py``) plus
+   a float32 margin; (13b) the ``sources`` mask: the masked field zero,
+   the others within the final stage's stop of the unmasked call's;
+   (13c) the rays between the transducers within 1 % of the analytic
+   surface time and not above the straight path's; (13d)
+   ``add_materials``' 45 degree table model against the same stiffness as
+   a runtime Christoffel model, within 1e-3, and that model's rays; (13e)
+   the kernels at the tutorial's shapes against their twins, max abs 0:
+   K1 against the graphed twin at every stage of the gradient model's
+   solve (a min pass, and a replace pass at the final shape) and at the
+   final shape of the rays' two receivers, the 45 degree table model
+   and the Christoffel model (a min pass), K2 and K3 on the facade's ray inputs of the gradient
+   and the Christoffel models in float32 and float64; then K1 warm at 3
+   x 201 x 201 and 2 x 201 x 201 on the gradient model beside its
+   bound, its timed pass equal to the twin's.
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``.
@@ -185,6 +213,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3240,16 +3269,16 @@ def virtual_mesh(device, kind):
     return Mesh([device] * n, (name,)), name
 
 
-def padded_case(Z, X, rows, cols, dtype, device, B=3):
-    """A seeded (Z, X) model and fields padded by ``rows`` and ``cols``
-    with fixed INF points and edge materials, as solve_ttf_halo pads
-    them: (tt, model, fixed)."""
+def padded_case(Z, X, rows, cols, dtype, device, B=3, make=random_model):
+    """A seeded (Z, X) model of ``make`` and fields padded by ``rows`` and
+    ``cols`` with fixed INF points and edge materials, as solve_ttf_halo
+    pads them: (tt, model, fixed)."""
     import torch.nn.functional as F
 
     from alifmm_tpu_torch.ops.stencils import INF
     from alifmm_tpu_torch.parallel import shard
 
-    model = random_model(Z, X, dtype, device, seed=Z * 1000 + X)
+    model = make(Z, X, dtype, device, seed=Z * 1000 + X)
     tt, fixed = seeded((Z, X), B, dtype, device)
     return (F.pad(tt, (0, cols, 0, rows), value=INF),
             shard._edge_pad(model, rows, cols),
@@ -3265,13 +3294,20 @@ def padded_case(Z, X, rows, cols, dtype, device, B=3):
 AUTO_LAYOUT = ({},)
 FORCED_1D = AUTO_LAYOUT + ({"cluster": 1, "lanes": 4}, {"per_line": True})
 FORCED_2D = AUTO_LAYOUT + ({"cluster": 3}, {"per_line": True})
-# (mesh, Z, X, padded rows, padded columns, K5 layouts) of phase 12a's
-# cases
+# (mesh, Z, X, padded rows, padded columns, K5 layouts, model builder) of
+# phase 12a's cases: random_model's qP models (a stiffness block and a
+# constant table column), and qSV ones that give K5 an interpolated table
+# column (column mode 2), as QSV_PASS_CASES give K1.
 HALO_CASES = {
-    "1D 4 slabs 48x56": ("1d", 48, 56, 0, 0, FORCED_1D),
-    "2D 2x2 48x56": ("2d", 48, 56, 0, 0, FORCED_2D),
-    "1D 4 slabs 46x56 padded to 48": ("1d", 46, 56, 2, 0, AUTO_LAYOUT),
-    "2D 2x2 46x54 padded to 48x56": ("2d", 46, 54, 2, 2, AUTO_LAYOUT),
+    "1D 4 slabs 48x56": ("1d", 48, 56, 0, 0, FORCED_1D, random_model),
+    "2D 2x2 48x56": ("2d", 48, 56, 0, 0, FORCED_2D, random_model),
+    "1D 4 slabs 46x56 padded to 48": ("1d", 46, 56, 2, 0, AUTO_LAYOUT,
+                                      random_model),
+    "2D 2x2 46x54 padded to 48x56": ("2d", 46, 54, 2, 2, AUTO_LAYOUT,
+                                     random_model),
+    "1D 4 slabs qSV 48x56": ("1d", 48, 56, 0, 0, AUTO_LAYOUT,
+                             qsv_random_model),
+    "2D 2x2 qSV 48x56": ("2d", 48, 56, 0, 0, AUTO_LAYOUT, qsv_random_model),
 }
 
 
@@ -3351,9 +3387,10 @@ def check_halo_case(name, dtype, device):
     from alifmm_tpu_torch.ops import cuda_sweep, sweep
     from alifmm_tpu_torch.parallel import shard
 
-    kind, Z, X, rows, cols, layouts = HALO_CASES[name]
+    kind, Z, X, rows, cols, layouts, make = HALO_CASES[name]
     mesh, axis = virtual_mesh(device, kind)
-    tt, model, fixed = padded_case(Z, X, rows, cols, dtype, device)
+    tt, model, fixed = padded_case(Z, X, rows, cols, dtype, device,
+                                   make=make)
     hp, *hks = halo_pair(tt, model, fixed, mesh, axis,
                          Z if rows else None, X if cols else None, layouts)
     hk = hks[0]
@@ -3423,9 +3460,11 @@ def phase_halo_fixed(inputs, device):
     """(12b) solve_halo_sharded with a fixed budget against K1's
     single-device solve_fixpoint with the matched budget (rel_tol 0: every
     phase-1 pass runs), max abs 0: 48 x 56 (three sources) on the 4-slab,
-    2 x 2 and 3-slab meshes (the last 50 x 56, padded to 51 rows) in float64
-    and float32; the weld's final stage (its injected state, 31 x 424 x
-    500, float32, 3 + 2 passes) on the 4-slab and 2 x 2 meshes."""
+    2 x 2 and 3-slab meshes (the last 50 x 56, padded to 51 rows) and qSV
+    48 x 56 (``qsv_random_model``: K5's interpolated table column) on the
+    4-slab and 2 x 2 meshes, in float64 and float32; the weld's final stage
+    (its injected state, 31 x 424 x 500, float32, 3 + 2 passes) on the
+    4-slab and 2 x 2 meshes."""
     from alifmm_tpu_torch.ops import cuda_sweep
     from alifmm_tpu_torch.parallel import shard
 
@@ -3473,6 +3512,10 @@ def phase_halo_fixed(inputs, device):
         tt, fixed = seeded(model.shape, 3, dtype, device)
         one(f"50x56 padded to 51 {dname}", tt, model, fixed, "3", 6, 2,
             rows=1)
+        model = qsv_random_model(48, 56, dtype, device, seed=48056)
+        tt, fixed = seeded(model.shape, 3, dtype, device)
+        for kind in ("1d", "2d"):
+            one(f"qSV 48x56 {dname}", tt, model, fixed, kind, 6, 2)
     name, model, tt0, fixed = stage_inputs(inputs)[-1]
     for kind in ("1d", "2d"):
         one(f"weld final stage {name}", tt0, model, fixed, kind, 3, 2)
@@ -3763,6 +3806,324 @@ def phase_halo_facade(device):
                 counts=counts, times_max_rel=rel_t, fields_max_abs=d_f)
 
 
+# --------------------------------------------------------------------- #
+# Phase 13: the tutorial's workload (examples/tutorial_torch.ipynb)
+# --------------------------------------------------------------------- #
+
+# The notebook's sizes: n x n cells of dnx, three transducers on the top
+# edge, v = V0 + DV m/s a row (g = DV / dnx), float32 (the facade's
+# default), rays at subgrid_size 9.
+TUTORIAL_N = 201
+TUTORIAL_DNX = 1e-3
+TUTORIAL_COLS = (40.0, 100.0, 160.0)
+TUTORIAL_V0, TUTORIAL_DV = 3000.0, 10.0
+TUTORIAL_NEAR = 5            # cells around a source left out of 13a
+TUTORIAL_STIFF = (263e9, 148e9, 216e9, 129e9, 8100)
+# (13a) the gradient field against the analytic time, (largest, mean)
+# relative error over any source: the JAX package's own error on this
+# model at n = 201 on the CPU in float64 (tests/tutorial_records.py:
+# 1.78620e-2 / 4.86712e-3, the largest of the three sources), rounded up,
+# plus a float32 margin.  The same record in float32 moved the two by
+# 6.8e-8 and 5.4e-8 (1.78621e-2 / 4.86717e-3); the margin is about 15
+# times that, room for the card's float32 to round other operations
+# than JAX's does.
+TUTORIAL_JAX_ERROR = (1.78620e-2, 4.86712e-3)
+TUTORIAL_F32_MARGIN = (1e-6, 1e-6)
+TUTORIAL_RAY_TOL = 1e-2      # (13c) against the analytic surface time
+TUTORIAL_STRAIGHT_TOL = 1e-4  # (13c) above the straight path's time
+TUTORIAL_MODELS_TOL = 1e-3   # (13d) table against Christoffel fields
+
+
+def tutorial_arrays():
+    """The notebook's gradient model: (veln, velpn, vel_map, scx, scz)."""
+    n = TUTORIAL_N
+    veln = np.zeros((n, n))
+    velpn = np.ones((n, n), dtype=int)
+    vel_map = TUTORIAL_V0 + TUTORIAL_DV * np.arange(n)[:, None] * np.ones(
+        (1, n))
+    scx = TUTORIAL_DNX * np.array(TUTORIAL_COLS)
+    return veln, velpn, vel_map, scx, np.zeros(3)
+
+
+def gradient_time(scx, n=TUTORIAL_N):
+    """The analytic first arrival from (x, 0) in v = V0 + g z at every
+    point, (3, n, n): arccosh(1 + g^2 r^2 / (2 V0 v)) / g, with r^2 the
+    squared distances (also returned)."""
+    g = TUTORIAL_DV / TUTORIAL_DNX
+    iz, ix = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    z, x = iz * TUTORIAL_DNX, ix * TUTORIAL_DNX
+    r2 = np.stack([(x - sx) ** 2 + z ** 2 for sx in scx])
+    v = TUTORIAL_V0 + g * z
+    return np.arccosh(1.0 + g * g * r2 / (2.0 * TUTORIAL_V0 * v)) / g, r2
+
+
+def surface_time(dx):
+    """The analytic first arrival between two points of the top edge dx
+    apart: (2 / g) asinh(g dx / (2 V0))."""
+    g = TUTORIAL_DV / TUTORIAL_DNX
+    return 2.0 / g * np.arcsinh(g * dx / (2.0 * TUTORIAL_V0))
+
+
+def tutorial_call(what, fn, rays=False):
+    """A warm-up call, then a timed one with every count set to 0 just
+    before it: K1 launched, no plain pass or step, and with ``rays`` one K2
+    and one K3.  Returns (result, record)."""
+    fn()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"  {what}: {wall:.4f} s warm; launches {counts}")
+    if rays:
+        check_counts(counts, what)
+    else:
+        check(counts["sweep_pass"] > 0, f"{what} launched no sweep_pass")
+        check(counts["plain_passes"] == 0 and counts["march"] == 0
+              and counts["relax_times"] == 0,
+              f"{what} ran a plain pass or a ray kernel: {counts}")
+    return out, dict(wall=wall, counts=counts)
+
+
+def tutorial_k1(model, scx, scz, sel, every_stage, what):
+    """(13e) K1 against the graphed twin on the stage inputs of the
+    facade's solve of ``model`` (its budget, float32) for the sources
+    ``sel``, at both of AUTO's launch shapes, held to max abs 0: a min
+    pass at the final stage, and with ``every_stage`` a min pass at every
+    stage and a replace pass on the twin's result at the final one.
+    Returns the final stage's (model, field, fixed, the twin's min pass)
+    and the largest difference."""
+    from alifmm_tpu_torch import solver
+
+    def as_dev(a):
+        return torch.as_tensor(np.asarray(a)[sel], dtype=model.dtype,
+                               device=model.device)
+
+    stages = stage_inputs((model, as_dev(scx), as_dev(scz)),
+                          solver.SolveConfig())
+    worst = 0.0
+    for name, m, tt0, fixed in stages if every_stage else stages[-1:]:
+        label = f"(13e) {what}, {len(sel)} sources, {name}"
+        mid, e = check_pass(m, tt0, fixed, False, torch.float32,
+                            f"{label} min", graphed=True)
+        worst = max(worst, e)
+    if every_stage:
+        _, e = check_pass(m, mid, fixed, True, torch.float32,
+                          f"{label} replace", graphed=True)
+        worst = max(worst, e)
+    check(worst == 0.0, f"(13e) {what}: K1 differs from its twin by "
+          f"{worst:.3e}")
+    return (m, tt0, fixed, mid), worst
+
+
+def tutorial_rays(model, fields, scx, scz, worst, what):
+    """(13e) K2 and K3 on the inputs of the facade's
+    ``find_all_TTF_rays(subgrid_size=9)``: the receivers' fields
+    ``fields`` (float32, as the facade solved them), the three pairs of
+    the upper triangle and the facade's default knobs (the crossing
+    walk, no relaxation wave, bilinear field samples), against the
+    twins' march and ray times in float32 and float64, to the
+    tolerances stated at the top.  The differences go into ``worst``."""
+    pairs = np.triu(np.ones((3, 3)), k=1)
+    for m, dt in ((model, torch.float32), (as_float64(model), torch.float64)):
+        mat_flat, tidx, src, rec, spec, final_cross, fast = march_inputs(
+            m, dict(), 9, scx, scz, pairs, TUTORIAL_DNX)
+        args = (m, mat_flat, fields.to(dt), tidx, src, rec, spec, fast)
+        _, want, _ = plain_march(args)
+        label = f"(13e) {what}, {str(dt)[6:]}"
+        merge_worst(worst, march_vs_twin(args, want, final_cross, dt, label))
+        merge_worst(worst, check_k3(
+            m, mat_flat, *want[:3], spec.s, final_cross, dt, label,
+            iters=(0,), scorers=K3_SCORERS[1:2], single_waves=False))
+
+
+def phase_tutorial(device, ray_worst):
+    """(13) The tutorial notebook's calls, in the order of its cells (1-4:
+    the gradient model, ``update``, the ``sources`` mask,
+    ``find_all_TTF_rays(subgrid_size=9)`` and ``ray_path``; 5: the
+    curves, ``add_materials`` and the 45 degree table model; 6: the
+    velpn = 0 Christoffel model with ``stif_den``), through ALI_FMM on the
+    card at the notebook's sizes; the plots are left out (the card's host
+    has no matplotlib).  (13a) the gradient field against the analytic
+    time; (13b) the masked call; (13c) the rays between the transducers
+    against the analytic surface time and the straight path; (13d) the
+    table and the Christoffel models' fields against each other, and the
+    Christoffel model's rays; (13e) the kernels at the tutorial's shapes
+    against their twins (K1 on the gradient model's stages, and at the
+    final shape on the rays' receivers and the 45 degree table and
+    Christoffel models; K2 and K3 on the rays of the gradient and the
+    Christoffel models, their differences merged into ``ray_worst``),
+    and K1 warm at 3 x 201 x 201 and 2 x 201 x 201 beside its bound."""
+    import alifmm_tpu_torch
+    from alifmm_tpu_torch import solver
+    from alifmm_tpu_torch.ops import cuda_sweep
+
+    t_phase = time.perf_counter()
+    alifmm_tpu_torch.tqdm_disable = True
+    n, dnx = TUTORIAL_N, TUTORIAL_DNX
+    veln, velpn, vel_map, scx, scz = tutorial_arrays()
+    fm = alifmm_tpu_torch.ALI_FMM(veln, velpn, vel_map, scx, scz, dnx=dnx,
+                                  device=device)
+    # the gradient model as the facade builds it, on its default tables
+    # (13d's add_materials replaces them)
+    model = fm._make_model(veln, velpn, vel_map, None)
+    rec = dict(calls={})
+
+    # 13a: cell 5, fm.update
+    fields, rec["calls"]["update"] = tutorial_call(
+        "update (3 sources)", lambda: fm.update(veln, velpn, vel_map))
+    check(fields.shape == (3, n, n) and bool(np.isfinite(fields).all()),
+          f"tutorial fields: shape {fields.shape} or not finite")
+    want, r2 = gradient_time(scx)
+    far = r2 > (TUTORIAL_NEAR * dnx) ** 2
+    err = [(float(r.max()), float(r.mean())) for r in
+           (np.abs(fields[k] - want[k])[far[k]] / want[k][far[k]]
+            for k in range(3))]
+    bound = tuple(j + m for j, m in zip(TUTORIAL_JAX_ERROR,
+                                        TUTORIAL_F32_MARGIN))
+    log("  (13a) gradient field against the analytic time (points more "
+        f"than {TUTORIAL_NEAR} cells from the source), max / mean rel by "
+        "source: " + ", ".join(f"{a:.4e} / {b:.4e}" for a, b in err)
+        + f"; bound {bound[0]:.4e} / {bound[1]:.4e} (JAX "
+        f"{TUTORIAL_JAX_ERROR[0]:.4e} / {TUTORIAL_JAX_ERROR[1]:.4e} plus "
+        "the float32 margin)")
+    check(max(e[0] for e in err) <= bound[0]
+          and max(e[1] for e in err) <= bound[1],
+          "(13a) the gradient field is further from the analytic time than "
+          "the JAX package's plus the float32 margin")
+    rec["analytic"] = dict(max=[e[0] for e in err], mean=[e[1] for e in err],
+                           bound=list(bound))
+
+    # 13b: cell 7, the sources mask
+    mask = np.array([1, 0, 1])
+    some, rec["calls"]["update_masked"] = tutorial_call(
+        "update with sources [1, 0, 1]",
+        lambda: fm.update(veln, velpn, vel_map, sources=mask))
+    check(bool((some[1] == 0).all()), "(13b) the masked field is not zero")
+    tol = solver.SolveConfig().rel_tol
+    d = float(np.abs(some[[0, 2]] - fields[[0, 2]]).max())
+    scale = float(fields[[0, 2]].max())
+    log(f"  (13b) masked field all zeros; the other two against the "
+        f"unmasked call max abs {d:.4e} s (the final stop allows {tol} x "
+        f"{scale:.4e} s)")
+    check(d <= tol * scale, "(13b) the masked call's fields differ from the "
+          "unmasked call's beyond the final stage's stop")
+    rec["masked_max_abs"] = d
+
+    # 13c: cell 9, the rays between the three transducers
+    times, rec["calls"]["find_all_TTF_rays"] = tutorial_call(
+        "find_all_TTF_rays(subgrid_size=9)",
+        lambda: fm.find_all_TTF_rays(veln, velpn, vel_map, subgrid_size=9),
+        rays=True)
+    pairs = [(0, 1), (0, 2), (1, 2)]
+    got = np.array([times[i, j] for i, j in pairs])
+    dx = np.array([scx[j] - scx[i] for i, j in pairs])
+    analytic, straight = surface_time(dx), dx / TUTORIAL_V0
+    log("  (13c) ray times (us) against the analytic surface time and the "
+        "straight path: " + ", ".join(
+            f"{i}-{j} {t * 1e6:.4f} / {a * 1e6:.4f} / {s * 1e6:.4f}"
+            for (i, j), t, a, s in zip(pairs, got, analytic, straight)))
+    check(bool(np.isfinite(got).all()) and bool((got > 0).all()),
+          "(13c) ray times not finite and positive")
+    rel = np.abs(got - analytic) / analytic
+    check(bool((rel <= TUTORIAL_RAY_TOL).all()),
+          f"(13c) ray times off the analytic time by {rel.max():.3e}")
+    over = (got - straight) / straight
+    check(bool((over <= TUTORIAL_STRAIGHT_TOL).all()),
+          f"(13c) a ray time above the straight path's by {over.max():.3e}")
+    for i, j in pairs:
+        rx, ry = fm.ray_path(i, j)
+        check(rx is not None and bool(np.isfinite(rx).all())
+              and bool(np.isfinite(ry).all()), f"ray_path({i}, {j})")
+    rec["rays"] = dict(times=got.tolist(), analytic=analytic.tolist(),
+                       max_rel=float(rel.max()), over_straight=float(
+                           over.max()))
+
+    # 13d: cells 11-12 (curves, add_materials, the 45 degree table model)
+    # and 14 (the velpn = 0 Christoffel model)
+    c22, c23, c33, c44, rho = TUTORIAL_STIFF
+    curve = fm.generate_group_vel(c22, c23, c33, c44, rho, plot=False)
+    check(curve.shape == (361,) and bool(np.isfinite(curve).all()),
+          "generate_group_vel")
+    fm.add_materials(np.array([c22, c23, c33, c44, rho]))
+    veln_a = 45.0 * np.ones((n, n))
+    velpn_a = np.ones((n, n), dtype=int)
+    vel_map_a = np.ones((n, n))
+    fields_a, rec["calls"]["update_table_45"] = tutorial_call(
+        "update, 45 degree table model",
+        lambda: fm.update(veln_a, velpn_a, vel_map_a))
+    stif_den = np.zeros((n, n, 5), dtype=np.int64)
+    stif_den[:, :] = [263000, 148000, 216000, 129000, 8100]
+    velpn_s = np.zeros((n, n), dtype=int)
+    fm_s = alifmm_tpu_torch.ALI_FMM(veln_a, velpn_s, vel_map_a, scx, scz,
+                                    stif_den=stif_den, dnx=dnx, device=device)
+    times_s, rec["calls"]["find_all_TTF_rays_christoffel"] = tutorial_call(
+        "find_all_TTF_rays(subgrid_size=9), Christoffel model",
+        lambda: fm_s.find_all_TTF_rays(veln_a, velpn_s, vel_map_a,
+                                       stif_den=stif_den, subgrid_size=9),
+        rays=True)
+    fields_s, rec["calls"]["update_christoffel"] = tutorial_call(
+        "update, Christoffel model",
+        lambda: fm_s.update(veln_a, velpn_s, vel_map_a, stif_den=stif_den))
+    known = fields_s > 0
+    rel_ts = float((np.abs(fields_a - fields_s)[known]
+                    / fields_s[known]).max())
+    got_s = np.array([times_s[i, j] for i, j in pairs])
+    log(f"  (13d) the table and the Christoffel models' fields: max rel "
+        f"{rel_ts:.4e} (bound {TUTORIAL_MODELS_TOL}); Christoffel ray times "
+        "(us) " + ", ".join(f"{i}-{j} {t * 1e6:.4f}"
+                            for (i, j), t in zip(pairs, got_s)))
+    check(bool(np.isfinite(fields_a).all()) and bool(np.isfinite(
+        fields_s).all()), "(13d) the 45 degree fields are not finite")
+    check(rel_ts <= TUTORIAL_MODELS_TOL, "(13d) the table and the "
+          "Christoffel models' fields differ")
+    check(bool(np.isfinite(got_s).all()) and bool((got_s > 0).all()),
+          "(13d) Christoffel ray times not finite and positive")
+    rec["table_vs_christoffel_max_rel"] = rel_ts
+    rec["christoffel_times"] = got_s.tolist()
+
+    # 13e: the kernels against their twins at the tutorial's shapes, then
+    # K1 timed at the gradient model's final shape, 3 and 2 sources
+    k1_worst = []
+    finals = []
+    for sel, every in (([0, 1, 2], True), ([1, 2], False)):
+        final, e = tutorial_k1(model, scx, scz, sel, every, "gradient model")
+        finals.append(final)
+        k1_worst.append(e)
+    model_a = fm._make_model(veln_a, velpn_a, vel_map_a, None)
+    model_s = fm_s._make_model(veln_a, velpn_s, vel_map_a, stif_den)
+    for m, what in ((model_a, "45 degree table model"),
+                    (model_s, "Christoffel model")):
+        k1_worst.append(tutorial_k1(m, scx, scz, [0, 1, 2], False, what)[1])
+    for m, f, what in ((model, fm, "gradient model"),
+                       (model_s, fm_s, "Christoffel model")):
+        receivers = f._solve_fields(m, f.scx[[1, 2]], f.scz[[1, 2]], 1)
+        tutorial_rays(m, receivers, scx, scz, ray_worst, what)
+    rec["k1"] = []
+    for m, tt, fx, want in finals:
+        B = tt.shape[0]
+        packed = cuda_sweep.pack_model(m)
+        ms, out = time_k1(tt, fx, packed)
+        same = torch.equal(out, want)
+        log(f"  (13e) K1's timed pass at {B} x {n} x {n} equal to the "
+            f"twin's bit for bit: {same}")
+        check(same, f"(13e) K1's timed pass at {B} x {n} x {n} differs from "
+              "the twin's")
+        b, by = bound_ms(tt, fx, packed)
+        C, G = cuda_sweep.launch_config(B, n, n, cuda_sweep._sm_count(
+            tt.device))
+        log(f"  (13e) K1 at {B} x {n} x {n}: {ms:.4f} ms per pass at "
+            f"C={C} G={G}; bound {b:.4f} ms ({by}), share {b / ms:.4f}")
+        rec["k1"].append(dict(shape=[B, n, n], ms=ms, bound_ms=b,
+                              bound_by=by, share=b / ms, cluster=C, lanes=G))
+    rec["k1_max_abs_err"] = max(k1_worst)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {rec['seconds']:.1f} s")
+    return rec
+
+
 SCORER_NAMES = {0: "simpson3", 1: "simpson5", 2: "walk", 3: "exact"}
 
 
@@ -3795,9 +4156,10 @@ def ptxas_summary(report):
     return out
 
 
-def build_kernels():
+def build_kernels(after_sweep=None):
     """Compile every kernel source, one nvcc per source, all at once;
-    returns ptxas' registers and spills by kernel."""
+    ``after_sweep`` is called once ``sweep.cu`` is built, the others
+    still compiling.  Returns ptxas' registers and spills by kernel."""
     from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep
 
     builds = (cuda_sweep.build, cuda_rays.build, cuda_rays.build_descent)
@@ -3810,6 +4172,9 @@ def build_kernels():
 
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         jobs = [pool.submit(timed, b) for b in builds]
+        if after_sweep is not None:
+            jobs[0].result()
+            after_sweep()
         secs = [job.result() for job in jobs]
     log(f"[2] K1 and K5 (sweep.cu), K2 and K3 (rays.cu) and K4 (descent.cu) built "
         f"in {time.perf_counter() - t0:.2f} s, at once (each: "
@@ -3848,6 +4213,61 @@ def ray_kernel_entry(name, replaces, launches, errs, timed, defaults, regs,
     return entry
 
 
+def start_k1_twin():
+    """Phase 3 in a second process (``--k1-twin``), its output gathered
+    by a thread.  Returns (process, lines, thread)."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--k1-twin"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                              daemon=True)
+    reader.start()
+    return proc, lines, reader
+
+
+def join_k1_twin(job):
+    """Wait for phase 3's process and print its log (its times on its own
+    clock); fails if it failed.  Returns K1's largest difference."""
+    proc, lines, reader = job
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    reader.join()
+    log(f"  phase 3's process ended (waited {time.perf_counter() - t0:.1f} "
+        f"s for it), exit code {rc}; its log:")
+    for ln in lines:
+        print(ln, end="", flush=True)
+    check(rc == 0, f"phase 3 (K1 against its plain twin) failed: exit code "
+          f"{rc}")
+    return json.loads(lines[-1])["max_abs_err"]
+
+
+def stop_k1_twin(job):
+    """Kill phase 3's process if it still runs (a check failed first)."""
+    if job and job[0].poll() is None:
+        job[0].kill()
+        job[0].wait()
+
+
+def main_k1_twin():
+    """``python3 chip_smoke.py --k1-twin``: phase 3 alone, in inference
+    mode, with ``sweep.cu`` as built by the caller; its last line is
+    ``{"max_abs_err": x}``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from alifmm_tpu_torch.ops import cuda_sweep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_sweep.build()
+    log("[3] K1 against its plain twin")
+    with torch.inference_mode():
+        worst = phase_kernel_vs_plain(torch.device("cuda", 0))
+    print(json.dumps({"max_abs_err": worst}), flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3860,23 +4280,31 @@ def main():
     card = card_line()
     log(f"[1] device {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    regs = build_kernels()
-
-    log("[3] K1 against its plain twin")
-    worst = phase_kernel_vs_plain(device)
-    log("[4] ray kernels (K2, K3) against their plain twins")
-    ray_worst = phase_rays_vs_plain(device)
-    log("[4b] the ray kernels' fine-path instantiations against their plain "
-        "twins: nearest-point tap, exact materials, fast strides")
-    merge_worst(ray_worst, phase_fine_rays_vs_plain(device))
-    log("[4c] K4 (the descent march) against its plain twin on 48 x 56, "
-        "and trace_rays_descent against its composed twin")
-    descent_worst = phase_descent_vs_plain(device)
+    job = []
+    try:
+        regs = build_kernels(after_sweep=lambda: job.extend(start_k1_twin()))
+        log("[4] ray kernels (K2, K3) against their plain twins")
+        ray_worst = phase_rays_vs_plain(device)
+        log("[4b] the ray kernels' fine-path instantiations against their "
+            "plain twins: nearest-point tap, exact materials, fast strides")
+        merge_worst(ray_worst, phase_fine_rays_vs_plain(device))
+        log("[4c] K4 (the descent march) against its plain twin on 48 x 56, "
+            "and trace_rays_descent against its composed twin")
+        descent_worst = phase_descent_vs_plain(device)
+        log("[5b] K1 against its plain twin at the fine path's patch shapes")
+        fine_k1_worst = phase_fine_k1_vs_plain(device)
+        log("[11a] K1's interpolated table lookup against its twin (qSV "
+            "tables)")
+        qsv_k1_worst = phase_qsv_kernel(device)
+        log("[12a] K5 (the slab sweep) against its twin")
+        halo_worst = phase_halo_kernel(device)
+        log("[3] K1 against its plain twin, in the second process")
+        worst = join_k1_twin(job)
+    finally:
+        stop_k1_twin(job)
     log("[5] analytic checks: the isotropic 424 x 500 field with the "
         "default and the accuracy budget; the accuracy preset's cases")
     analytic = phase_analytic(device)
-    log("[5b] K1 against its plain twin at the fine path's patch shapes")
-    fine_k1_worst = phase_fine_k1_vs_plain(device)
     log("[5c] analytic check on the refined grid (s = 9)")
     analytic_fine = phase_analytic_fine(device)
     log("[6] weld slice (31 fields, 961 rays, float32): direct path, then "
@@ -3914,11 +4342,8 @@ def main():
     log("[10b] K4 in grid mode on the fine fields: against its twin, and "
         "timed beside its bound")
     k4_fine = phase_descent_fine(inputs, fine, descent_worst)
-    log("[11] shear modes: K1's interpolated table lookup against its "
-        "twin (11a), homogeneous qSV media (11b), the qSV weld slice direct "
-        "and through the facade (11c), K1 at its final shape (11d)")
-    qsv_k1_worst = phase_qsv_kernel(device)
-    log("[11b] homogeneous qSV 33 x 37, float64, for_mode('qsv')")
+    log("[11b] shear modes: homogeneous qSV 33 x 37, float64, "
+        "for_mode('qsv')")
     qsv_homog = phase_qsv_homogeneous(device)
     log("[11c] the qSV weld slice (31 fields, 961 rays, float32, "
         "for_mode('qsv')): direct, then through the facade")
@@ -3947,13 +4372,8 @@ def main():
         f"{fine['exact_rays']:.4f} s; grid against interp ray times max rel "
         f"{fine['gap_max']:.4e} median {fine['gap_median']:.4e}")
 
-    log("[12] the sharded solves: K5 (the slab sweep) against its twin "
-        "(12a), the fixed-budget halo solve against K1 (12b), "
-        "solve_ttf_halo at the weld (12c), source sharding and a one-rank "
-        "NCCL group (12d), the facade with grid_mesh (12e)")
-    halo_worst = phase_halo_kernel(device)
-    log("[12b] solve_halo_sharded with a fixed budget against K1's "
-        "solve_fixpoint")
+    log("[12b] the sharded solves: solve_halo_sharded with a fixed budget "
+        "against K1's solve_fixpoint")
     halo_fixed = phase_halo_fixed(inputs, device)
     log("[12c] solve_ttf_halo at the weld (4 slabs, 2 x 2 blocks), and K5 "
         "timed at the weld's final shape")
@@ -3963,6 +4383,9 @@ def main():
     sharded = phase_sharded_weld(inputs, device)
     log("[12e] the weld slice through ALI_FMM(grid_mesh=4 virtual z slabs)")
     halo_facade = phase_halo_facade(device)
+    log("[13] the tutorial notebook's workload through ALI_FMM (201 x 201, "
+        "three transducers, rays at subgrid_size 9, float32): 13a-13e")
+    tutorial = phase_tutorial(device, ray_worst)
 
     check("jax" not in sys.modules, "jax was imported")
     kernels = [{
@@ -3971,7 +4394,8 @@ def main():
         "source": "alifmm_tpu_torch/csrc/sweep.cu",
         "replaces": "alifmm_tpu/ops/pallas_sweep.py:124",
         "launches": counts["sweep_pass"],
-        "max_abs_err": max(worst, abs_e, fine_k1_worst, qsv_k1_worst),
+        "max_abs_err": max(worst, abs_e, fine_k1_worst, qsv_k1_worst,
+                           tutorial["k1_max_abs_err"]),
         "ms": final["ms"],
         "plain_ms": ms_p,
         "bound_ms": final["bound_ms"],
@@ -3996,6 +4420,9 @@ def main():
             "wall", "solve", "rays", "stages", "passes", "converged",
             "over_qp", "facade_search", "facade_auto")},
         "qsv_homogeneous": qsv_homog,
+        "launches_tutorial": {k: v["counts"]["sweep_pass"]
+                              for k, v in tutorial["calls"].items()},
+        "tutorial": tutorial,
     }]
     defaults = weld["facade defaults"]
     kernels.append(ray_kernel_entry(
@@ -4160,4 +4587,5 @@ def main_k4():
 
 
 if __name__ == "__main__":
-    sys.exit(main_k4() if sys.argv[1:] == ["--k4"] else main())
+    sys.exit({"--k4": main_k4, "--k1-twin": main_k1_twin}.get(
+        " ".join(sys.argv[1:]), main)())

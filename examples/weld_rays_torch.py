@@ -4,7 +4,8 @@ travel-time fields, 961 ray paths, through ``alifmm_tpu_torch.ALI_FMM``.
 The counterpart of ``weld_rays.py``.  It runs on the seeded procedural
 weld of ``alifmm_tpu_torch/weld_data.py`` (424 x 500, dnx = 2e-4 m) and
 saves trav_times.npy, ray_paths_x.npy, ray_paths_y.npy and ray_len.npy
-with the same shapes and meaning.  Run it from anywhere::
+with the same shapes and meaning (``utils/io.save_rays``; plot them with
+``plot_rays_torch.py``).  Run it from anywhere::
 
     python examples/weld_rays_torch.py [out_dir] [--device cpu]
         [--reference-knobs] [--seed N]
@@ -21,11 +22,10 @@ import os
 import sys
 import time
 
-import numpy as np
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from alifmm_tpu_torch import ALI_FMM, weld_data  # noqa: E402
+from alifmm_tpu_torch.utils import io  # noqa: E402
 
 # production budgets and march knobs of the weld workload
 SOLVE_KW = dict(final_rel_tol=3e-3, final_polish_passes=2,
@@ -52,17 +52,8 @@ def main(out_dir=".", device=None, reference_knobs=False, seed=0):
     wall = time.time() - t0
     print(f"31 TTFs + 961 rays in {wall:.3f}s")
 
-    max_len = np.max(fm.ray_len)
-    np.save(os.path.join(out_dir, "trav_times.npy"), trav_times)
-    np.save(
-        os.path.join(out_dir, "ray_paths_x.npy"),
-        fm.ray_paths_x[:, :, :max_len],
-    )
-    np.save(
-        os.path.join(out_dir, "ray_paths_y.npy"),
-        fm.ray_paths_y[:, :, :max_len],
-    )
-    np.save(os.path.join(out_dir, "ray_len.npy"), fm.ray_len)
+    io.save_rays(out_dir, trav_times, fm.ray_paths_x, fm.ray_paths_y,
+                 fm.ray_len)
     return wall
 
 

@@ -48,6 +48,7 @@ import _torch_gloo_worker as gloo_worker
 RTOL_JAX = 1e-9
 RTOL_FACADE = 1e-6
 STAGES = ((1, 9), (2, 3))
+ONE_STAGE = ((2, 3),)
 SEED_SIDE = 4
 BUDGET = dict(patch_max_passes=2, final_max_passes=3, polish_passes=1)
 SHAPE = (16, 20)
@@ -130,12 +131,23 @@ def _jax_facade():
         jsolver._COARSE_STAGES, jsolver._COARSE_SEED_SIDE = saved
 
 
+def _jax_one_stage():
+    """JAX's unsharded staged solve of the world's sources with one 3x
+    patch stage (ONE_STAGE)."""
+    jm, _ = _models()
+    return np.asarray(jsolver._staged_solve(
+        jm, jnp.asarray(WORLD_SCX), jnp.asarray(WORLD_SCZ), ONE_STAGE,
+        SEED_SIDE, -1.0,
+        jsolver.SolveConfig(**BUDGET, sweep_block=1, patch_block=1)))
+
+
 @pytest.fixture(scope="module")
 def jax_refs():
     """The module's JAX references, computed in a second process while the
     port runs."""
     with _jax_side.references({"sharded": _jax_sharded,
-                               "facade": _jax_facade}) as refs:
+                               "facade": _jax_facade,
+                               "one_stage": _jax_one_stage}) as refs:
         yield refs
 
 
@@ -208,6 +220,19 @@ def test_trace_rays_sharded_matches(world):
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want_j[2]))
     np.testing.assert_allclose(got[3].numpy(), np.asarray(want_j[3]),
                                rtol=RTOL_JAX)
+
+
+def test_one_stage_schedule_matches_jax(jax_refs, world):
+    """The world's sources under a one-stage patch schedule, whose final
+    stage starts from a coarse seed that ties stencil choices: source 7
+    moved by 2e-1 while the twins' square root was PyTorch's CPU one, one
+    ulp off on some inputs; with a correctly rounded root (ops/_math.sqrt)
+    within 1e-9 of JAX's."""
+    _, tm, scx, scz, _ = world
+    got = tsolver._staged_solve(tm, torch.from_numpy(scx),
+                                torch.from_numpy(scz), ONE_STAGE, SEED_SIDE,
+                                -1.0, tsolver.SolveConfig(**BUDGET))
+    _close(got.numpy(), jax_refs["one_stage"].result(), RTOL_JAX)
 
 
 def test_pad_sources_matches_jax():

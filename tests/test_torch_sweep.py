@@ -150,6 +150,35 @@ def test_gs_pass_varying_table_column_matches_jax():
     assert np.any(want2 != mid)
 
 
+def test_isotropic_replace_pass_matches_jax():
+    """An exactly symmetric isotropic seed (3000 m/s, dnx 1e-3, one source
+    at (16, 20) of 32 x 40): four min passes, then a replace pass on JAX's
+    four.  Its stencil choices tie to an ulp, so one ulp in a square root
+    moves the replace pass by 1.6e-2: the twins' roots must be correctly
+    rounded, as JAX's and CUDA's are (ops/_math.sqrt)."""
+    Z, X = 32, 40
+    jm = jgrid.make_model(np.zeros((Z, X)), np.ones((Z, X), dtype=int),
+                          np.full((Z, X), 3000.0), None, None, None, 1e-3,
+                          dtype=jnp.float64)
+    tm = _torch_model(jm, torch.float64)
+    tt0 = np.full((1, Z, X), jst.INF)
+    fixed = np.zeros((1, Z, X), bool)
+    tt0[0, 16, 20] = 0.0
+    fixed[0, 16, 20] = True
+    jpass = jax.jit(jsweep.gs_pass)
+    t = torch.from_numpy
+    want, got = tt0, t(tt0.copy())
+    for _ in range(4):
+        want = np.asarray(jpass(jnp.asarray(want), jm, jnp.asarray(fixed),
+                                False))
+        got = tsweep.gs_pass(got, tm, t(fixed), replace=False)
+        _assert_close(got.numpy(), want, fixed, RTOL_F64)
+    want2 = np.asarray(jpass(jnp.asarray(want), jm, jnp.asarray(fixed), True))
+    got2 = tsweep.gs_pass(t(want.copy()), tm, t(fixed), replace=True).numpy()
+    _assert_close(got2, want2, fixed, RTOL_F64)
+    assert np.any(want2 != want)
+
+
 def test_unported_forms_raise(f64):
     jm, tm, tt0, fixed = f64
     t, f = torch.from_numpy(tt0), torch.from_numpy(fixed)
