@@ -30,6 +30,7 @@ __all__ = [
     "generate_mode_curves",
     "first_arrival_group_curve",
     "wavefront_corner_angles",
+    "angular_distance_deg",
     "slowness_derivative",
     "default_tables",
     "build_tables",
@@ -39,6 +40,11 @@ __all__ = [
 ]
 
 _DEG2RAD = math.pi / 180.0
+
+
+def _deg2rad(x):
+    """Degrees to radians (numpy, as the JAX package's helper)."""
+    return x * (np.pi / 180.0)
 
 
 def group_velocity_christoffel(angle_deg, c22, c23, c33, c44, rho,
@@ -389,6 +395,13 @@ def wavefront_corner_angles(c22, c23, c33, c44, rho, c66=None, mode="qSV",
     d = pts[nxt] - v
     psi = np.degrees(np.arctan2(-d[:, 0], d[:, 1]))  # outward edge normal
     return np.sort(np.mod(psi[bridge], 360.0))
+
+
+def angular_distance_deg(a, b):
+    """Smallest absolute angular distance |a - b| on the circle, in
+    degrees (numpy)."""
+    d = np.mod(np.asarray(a) - np.asarray(b), 360.0)
+    return np.minimum(d, 360.0 - d)
 
 
 def generate_mode_curves(c22, c23, c33, c44, rho, c66=None, mode="qP",

@@ -9,9 +9,15 @@ scale.  It is compiled with ``nvcc`` for ``sm_90a`` into a library
 with a plain C interface at first use, into ``alifmm_tpu_torch/_build/``,
 and loaded with ``ctypes`` (``ops/_build.py``).
 
-``sweep_pass`` is the wrapper: for CUDA tensors it launches K1 (and raises
-on any failure), for CPU tensors it runs the plain twin
-(``ops/sweep.gs_pass``).  ``LAUNCHES`` counts kernel launches.
+K1's other forms (``sweep.Form``: the FD-only and the FD-free operator,
+the parallel-in-block order) are a second library,
+``csrc/sweep_forms.cu``, over the same device functions
+(``csrc/sweep_device.cuh``), so that K1's own build does not grow.
+
+``sweep_pass`` is the wrapper: for CUDA tensors it launches K1 (the
+default form) or its form kernel (and raises on any failure), for CPU
+tensors it runs the plain twin (``ops/sweep.gs_pass``).  ``LAUNCHES``
+counts K1's default launches, ``FORM_LAUNCHES`` the others by form.
 ``solve_fixpoint`` is the two-phase pass loop the solver calls; it reads
 the per-pass delta and scale to the host once per pass.
 
@@ -38,16 +44,23 @@ from .. import grid as gridlib
 from .. import materials as mat
 from . import _build, sweep
 
-__all__ = ["LAUNCHES", "SLAB_LAUNCHES", "build", "launch_config",
-           "pack_model", "sweep_pass", "solve_fixpoint", "slab_config",
-           "SlabLayout", "SlabSweep", "slab_sweep"]
+__all__ = ["LAUNCHES", "FORM_LAUNCHES", "SLAB_LAUNCHES", "build",
+           "build_forms", "launch_config", "pack_model", "form_kernel",
+           "sweep_pass", "solve_fixpoint", "slab_config", "SlabLayout",
+           "SlabSweep", "slab_sweep"]
 
 LAUNCHES = 0
 SLAB_LAUNCHES = 0
+# launches of K1's other forms, by form_kernel name
+FORM_LAUNCHES = {"fd_only": 0, "fd_free": 0, "block_fd": 0,
+                 "block_full": 0}
 
 SOURCE = os.path.join(_build.CSRC, "sweep.cu")
+FORMS_SOURCE = os.path.join(_build.CSRC, "sweep_forms.cu")
 _LIB = None
+_FORMS_LIB = None
 BUILD_LOG = ""
+FORMS_BUILD_LOG = ""
 # Launch shapes K1 is built for (csrc/sweep.cu): clusters of up to 8 CTAs
 # per source, 4 or 8 lanes per point, width tiles of up to 1,020 points.
 CLUSTER_SIZES = (8, 4, 2, 1)
@@ -85,6 +98,43 @@ def build(verbose: bool = False):
     lib.alifmm_enable_peer_access.restype = i32
     _LIB = lib
     return lib
+
+
+def build_forms(verbose: bool = False):
+    """Compile ``csrc/sweep_forms.cu`` (K1's other forms) once per process
+    and source version and return the loaded library; ``verbose`` as in
+    ``build``, its report in ``FORMS_BUILD_LOG``."""
+    global _FORMS_LIB, FORMS_BUILD_LOG
+    if _FORMS_LIB is not None:
+        return _FORMS_LIB
+    lib, FORMS_BUILD_LOG = _build.compile_library(
+        FORMS_SOURCE, "alifmm_sweep_forms", verbose)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("alifmm_sweep_forms_f32", "alifmm_sweep_forms_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr,
+                       i32, ptr, ptr, i32, ctypes.c_double, ptr, ptr, ptr,
+                       ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+        fn.restype = i32
+    _FORMS_LIB = lib
+    return lib
+
+
+# csrc/sweep_device.cuh: the operators of the form kernel
+OP_FULL, OP_FD_ONLY, OP_FD_FREE = 0, 1, 2
+
+
+def form_kernel(form: "sweep.Form"):
+    """(name, operator, lines a block, iterations a block) of the kernel
+    that runs ``form``; name None for K1's default form (``sweep.cu``)."""
+    if form.inner:
+        return (("block_full", OP_FULL) if form.use_ali
+                else ("block_fd", OP_FD_ONLY)) + (form.block, form.inner)
+    if form.use_ali and form.use_fd:
+        return None, OP_FULL, 1, 1
+    if form.use_ali:
+        return "fd_free", OP_FD_FREE, 1, 1
+    return "fd_only", OP_FD_ONLY, 1, 1
 
 
 class Packed(typing.NamedTuple):
@@ -157,9 +207,12 @@ def launch_config(B: int, Z: int, X: int, sms: int,
     return cluster, lanes
 
 
-def _launch(tt, fixed, packed, replace, active, cluster=None, lanes=None):
+def _launch(tt, fixed, packed, replace, active, cluster=None, lanes=None,
+            form=sweep.DEFAULT):
     """Launch K1 for (B, Z, X) CUDA fields; returns (new, delta, scale).
-    ``cluster``/``lanes`` override ``launch_config``'s choice."""
+    ``cluster``/``lanes`` override ``launch_config``'s choice; a ``form``
+    other than the default launches the form kernel
+    (``csrc/sweep_forms.cu``)."""
     global LAUNCHES
     if tt.dim() != 3 or fixed.shape != tt.shape:
         raise ValueError(f"K1 takes (B, Z, X) fields and a fixed mask of the "
@@ -189,43 +242,57 @@ def _launch(tt, fixed, packed, replace, active, cluster=None, lanes=None):
     rep = torch.as_tensor(np.asarray(replace, np.int32)).to(tt.device)
     act = torch.as_tensor(np.asarray(active, np.int32)).to(tt.device)
     bstride = 0 if planes.shape[0] == 1 else planes[0].numel()
-    lib = build()
-    fn = lib.alifmm_sweep_pass_f32 if dt == torch.float32 else lib.alifmm_sweep_pass_f64
+    name, op, nb, iters = form_kernel(form)
+    args = (tt.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            fixed.data_ptr(), planes.data_ptr(), packed.planes_t.data_ptr(),
+            bstride, packed.phase_tab.data_ptr(),
+            packed.phase_tab.shape[1], packed.col_mode.data_ptr(),
+            packed.col_const.data_ptr(), int(packed.has_stif), packed.dnx,
+            rep.data_ptr(), act.data_ptr(), delta.data_ptr(),
+            scale.data_ptr(), B, Z, X, C, G)
     stream = torch.cuda.current_stream(tt.device).cuda_stream
-    err = fn(tt.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-             fixed.data_ptr(), planes.data_ptr(), packed.planes_t.data_ptr(),
-             bstride, packed.phase_tab.data_ptr(),
-             packed.phase_tab.shape[1], packed.col_mode.data_ptr(),
-             packed.col_const.data_ptr(), int(packed.has_stif), packed.dnx,
-             rep.data_ptr(), act.data_ptr(), delta.data_ptr(),
-             scale.data_ptr(), B, Z, X, C, G, stream)
+    f32 = dt == torch.float32
+    if name is None:
+        lib = build()
+        fn = lib.alifmm_sweep_pass_f32 if f32 else lib.alifmm_sweep_pass_f64
+        err = fn(*args, stream)
+    else:
+        lib = build_forms()
+        fn = lib.alifmm_sweep_forms_f32 if f32 else lib.alifmm_sweep_forms_f64
+        err = fn(*args, op, nb, iters, stream)
     if err != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"K1 ({name or 'default'} form) launch failed: "
+                           f"CUDA error {err}")
+    if name is None:
+        LAUNCHES += 1
+    else:
+        FORM_LAUNCHES[name] += 1
     return out, delta, scale
 
 
 def sweep_pass(tt, model: gridlib.Model, fixed, replace, active=None,
-               packed: Packed | None = None):
-    """One sweep pass over (B, Z, X) fields: K1 on a CUDA tensor, the plain
-    twin on a CPU tensor.  ``replace``/``active``: per-source flags
-    (inactive sources keep their field).  Returns (new, delta, scale) with
-    per-source delta and scale as host arrays."""
+               packed: Packed | None = None, form=sweep.DEFAULT):
+    """One sweep pass of ``form`` (``sweep.Form``) over (B, Z, X) fields:
+    K1 on a CUDA tensor, the plain twin on a CPU tensor.
+    ``replace``/``active``: per-source flags (inactive sources keep their
+    field).  Returns (new, delta, scale) with per-source delta and scale
+    as host arrays."""
     B = tt.shape[0]
     replace = np.array(np.broadcast_to(np.asarray(replace, bool), (B,)))
     active = (np.ones(B, bool) if active is None
               else np.array(np.broadcast_to(np.asarray(active, bool), (B,))))
     if not tt.is_cuda:
-        return sweep.plain_pass(tt, model, fixed, replace, active)
+        return sweep.plain_pass(tt, model, fixed, replace, active, form=form)
     packed = pack_model(model) if packed is None else packed
-    out, delta, scale = _launch(tt, fixed, packed, replace, active)
+    out, delta, scale = _launch(tt, fixed, packed, replace, active,
+                                form=form)
     return out, delta.cpu().numpy(), scale.cpu().numpy()
 
 
 def solve_fixpoint(tt0, model: gridlib.Model, fixed, rel_tol: float = 1e-6,
                    max_passes: int = 50, min_passes: int = 2,
                    polish_passes: int = 5, max_polish_passes: int | None = None,
-                   per_source: bool = False, inner: int = 0,
+                   per_source: bool = False, block: int = 1, inner: int = 0,
                    use_ali: bool = True, phase1_use_ali: bool | None = None,
                    polish_use_fd: bool = True):
     """Two-phase fixpoint solve of (B, Z, X) fields through ``sweep_pass``.
@@ -233,15 +300,24 @@ def solve_fixpoint(tt0, model: gridlib.Model, fixed, rel_tol: float = 1e-6,
     ``per_source=False``: one joint stop test over the batch (the final
     stage).  ``per_source=True``: each source has its own phase, pass count
     and stop test, and ``model`` may carry per-source material fields (the
-    patch stages).  Returns (field, SolveInfo)."""
-    sweep.check_form(inner, use_ali, phase1_use_ali, polish_use_fd)
+    patch stages); a pass then runs each phase's form on its sources.
+    The forms and the two-loop stop rules are ``ops/sweep.solve_fixpoint``'s
+    (``phase_forms``, ``two_loop``).  Returns (field, SolveInfo)."""
+    forms = sweep.phase_forms(block, inner, use_ali, phase1_use_ali,
+                              polish_use_fd)
     packed = pack_model(model) if tt0.is_cuda else None
 
+    def run(tt, rep, act, form):
+        return sweep_pass(tt, model, fixed, rep, act, packed=packed,
+                          form=form)
+
     def pass_fn(tt, rep, act):
-        return sweep_pass(tt, model, fixed, rep, act, packed=packed)
+        return sweep.split_pass(tt, rep, act, forms, run)
 
     return sweep.two_phase(tt0, pass_fn, per_source, rel_tol, max_passes,
-                           min_passes, polish_passes, max_polish_passes)
+                           min_passes, polish_passes, max_polish_passes,
+                           sweep.two_loop(inner, use_ali, phase1_use_ali,
+                                          polish_use_fd))
 
 
 # --------------------------------------------------------------------- #

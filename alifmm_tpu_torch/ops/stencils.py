@@ -351,6 +351,8 @@ def local_update(
     model: "gridlib.Model",
     dnx,
     causal: bool = False,
+    use_ali: bool = True,
+    use_fd: bool = True,
 ):
     """One local solve at every point of a block: the ALI update where a
     stencil is usable, else the multi-stencil FD estimate (INF where
@@ -358,8 +360,22 @@ def local_update(
     largest stencil value they were computed from (the sweeps'
     mode); ``causal=False`` is the reference operator.  ``fbs`` is indexed
     positionally (four fallback-slowness views); ``model`` supplies the
-    phase table and its static column summary."""
-    fouds_val = _fouds_candidate(nbr, known, inb, fbs, tt_center, dnx, causal)
+    phase table and its static column summary.
+
+    ``use_ali=False`` returns the FD estimate alone (monotone upwind: the
+    parallel-in-block sweeps and an FD phase-1 envelope rely on it);
+    ``use_fd=False`` takes INF for the fallback, so that a replace
+    accumulation keeps the value it had where no ALI stencil applies (the
+    FD-free polish).  One of the two must hold."""
+    if not (use_ali or use_fd):
+        raise ValueError("local_update needs at least one of use_ali/use_fd")
+    if use_fd:
+        fouds_val = _fouds_candidate(nbr, known, inb, fbs, tt_center, dnx,
+                                     causal)
+    else:
+        fouds_val = torch.full_like(tt_center, INF)
+    if not use_ali:
+        return fouds_val
     angle, dist, wtime, imax = _ali_candidate(nbr, known, edges)
     eff = torch.remainder(veln - angle, 180.0)
     vel = gridlib.phase_velocity_at(model, eff, velpn=velpn, vel_map=vel_map,
@@ -405,9 +421,11 @@ def inbounds_masks(Z, X, device=None):
     return out
 
 
-def full_grid_update(tt, model: gridlib.Model, fixed_mask, causal=False):
+def full_grid_update(tt, model: gridlib.Model, fixed_mask, causal=False,
+                     use_ali=True, use_fd=True):
     """One Jacobi pass of the local update over the whole grid; ``tt`` is
-    (..., Z, X) with INF at unknown points."""
+    (..., Z, X) with INF at unknown points; ``use_ali``/``use_fd`` as in
+    ``local_update``."""
     Z, X = tt.shape[-2], tt.shape[-1]
     tt_pad = torch.nn.functional.pad(tt, (2, 2, 2, 2), value=INF)
     nbr, known = neighbors_from_padded(tt_pad, Z, X)
@@ -416,5 +434,5 @@ def full_grid_update(tt, model: gridlib.Model, fixed_mask, causal=False):
     fbs = [model.fallback_slowness[..., f, :, :] for f in range(4)]
     new = local_update(nbr, known, inb, tt, model.veln, model.velpn,
                        model.vel_map, model.stif, fbs, edges, model,
-                       model.dnx, causal)
+                       model.dnx, causal, use_ali, use_fd)
     return torch.where(fixed_mask, tt, new)

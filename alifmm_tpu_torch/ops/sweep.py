@@ -9,11 +9,17 @@ old ones; same-line neighbours are read from the line's old values.  The
 loop over lines launches hundreds of small operations per line, so this
 form is for the CPU tests and for checking the kernel.
 
-Only the single-loop two-phase form is ported (``use_ali=True``,
-``phase1_use_ali=None``, ``polish_use_fd=True``, ``inner=0``): phase 1
-min-accumulates until the pass-to-pass delta falls below ``rel_tol``, then
-the replace polish runs.  ``block`` is an XLA dispatch knob and is
-ignored.
+Every form of the JAX package's sweep is here (``Form``): the full
+operator (ALI with the FD fallback), the FD-only operator
+(``use_ali=False``), the FD-free one (``use_fd=False``, the polish's fast
+path), and the parallel-in-block sweeps (``inner`` = J > 0 with ``block``
+= B >= 2: J Jacobi iterations over B lines at a time, the blocks tiling
+the scan of the S x S padded square, S = max(Z, X)).  ``solve_fixpoint``
+runs the single-loop two-phase form, or the two-loop form (a phase-1
+envelope with its own operator and ``inner``, then a strictly ordered,
+residual-driven polish) whenever the phases' operators differ or
+``inner`` > 0.  With ``inner == 0``, ``block`` is an XLA dispatch knob
+and changes nothing.
 """
 
 from __future__ import annotations
@@ -28,8 +34,9 @@ from .. import grid as gridlib
 from . import stencils
 from .stencils import INF, OFFSETS
 
-__all__ = ["gs_pass", "solve_fixpoint", "slab_sweep", "Geometry",
-           "SolveInfo", "CALLS"]
+__all__ = ["gs_pass", "gs_pass_unshared", "jacobi_pass", "solve_fixpoint",
+           "slab_sweep", "Geometry", "Form", "pass_form", "phase_forms",
+           "two_loop", "SolveInfo", "CALLS"]
 
 # Plain sweep passes and plain slab sweeps run in this process (the
 # kernels' wrappers count their own launches; a run on the card shows the
@@ -46,16 +53,55 @@ class SolveInfo(typing.NamedTuple):
     converged: typing.Any
 
 
-def check_form(inner=0, use_ali=True, phase1_use_ali=None, polish_use_fd=True):
-    """Raise for the sweep forms this port leaves out."""
-    if inner:
-        raise NotImplementedError("parallel-in-block sweeps (inner > 0)")
-    if not use_ali:
-        raise NotImplementedError("FD-only sweeps (use_ali=False)")
-    if phase1_use_ali is not None and phase1_use_ali != use_ali:
-        raise NotImplementedError("a separate phase-1 operator")
-    if not polish_use_fd:
-        raise NotImplementedError("polish without the FD fallback")
+class Form(typing.NamedTuple):
+    """What one pass runs: the operator (``use_ali``: the ALI update,
+    ``use_fd``: the FD fallback) and the line order (``inner`` = J > 0:
+    J parallel iterations over blocks of ``block`` lines; 0: strict
+    order, ``block`` 1).  ``pass_form`` builds it from ``gs_pass``'s
+    arguments."""
+
+    use_ali: bool = True
+    use_fd: bool = True
+    block: int = 1
+    inner: int = 0
+
+
+DEFAULT = Form()
+
+
+def pass_form(block=1, inner=0, inner_use_ali=False, use_ali=True,
+              use_fd=True) -> Form:
+    """The ``Form`` of ``gs_pass(block, inner, inner_use_ali, use_ali,
+    use_fd)``, as the JAX package's gs_pass reads them: the parallel
+    iterations need blocks of at least two lines (J = ``inner`` only when
+    ``block`` >= 2), and they run the FD-only operator unless
+    ``inner_use_ali`` (the FD fallback always on); ``use_ali`` and
+    ``use_fd`` are the strict order's operator."""
+    B = max(1, int(block))
+    J = int(inner) if (inner and B >= 2) else 0
+    if J:
+        return Form(bool(inner_use_ali), True, B, J)
+    if not (use_ali or use_fd):
+        raise ValueError("local_update needs at least one of use_ali/use_fd")
+    return Form(bool(use_ali), bool(use_fd), 1, 0)
+
+
+def phase_forms(block=1, inner=0, use_ali=True, phase1_use_ali=None,
+                polish_use_fd=True):
+    """(phase-1 form, polish form) of a fixpoint solve: phase 1 takes
+    ``phase1_use_ali`` (None: ``use_ali``) with the FD fallback and
+    ``inner``; the polish is strictly ordered with ``use_ali`` and
+    ``polish_use_fd``."""
+    p1 = use_ali if phase1_use_ali is None else phase1_use_ali
+    return (pass_form(block, inner, False, p1, True),
+            pass_form(1, 0, False, use_ali, polish_use_fd))
+
+
+def two_loop(inner=0, use_ali=True, phase1_use_ali=None, polish_use_fd=True):
+    """Whether the JAX package runs the fixpoint as two loops (its phase-1
+    and polish bodies differ); see ``two_phase``."""
+    p1 = use_ali if phase1_use_ali is None else phase1_use_ali
+    return bool(inner) or p1 != use_ali or not polish_use_fd
 
 
 def _line_mats(model, axis, i):
@@ -72,11 +118,13 @@ def _line_mats(model, axis, i):
 
 
 def _line(band, flags, fixed_row, rep, mats, wok, wfirst, wlast, axis,
-          model):
+          model, op=(True, True)):
     """The new values of one grid line.  ``band``: the padded work rows
     i-2..i+2, (..., 5, W + 4); ``flags``: (7,) bool, rows i-2..i+2 inside
     the grid, then whether line i is the first and the last; ``mats``:
-    ``_line_mats`` of the line."""
+    ``_line_mats`` of the line; ``op``: (use_ali, use_fd).  A block of
+    lines updated at once (the parallel-in-block sweeps) takes a line
+    axis before the band's: (..., B, 5, W + 4), with flags (7, B, 1)."""
     W = band.shape[-1] - 4
     tt_center = band[..., 2, 2: 2 + W]
     nbr, known, inb = {}, {}, {}
@@ -94,7 +142,7 @@ def _line(band, flags, fixed_row, rep, mats, wok, wfirst, wlast, axis,
     veln, velpn, vel_map, stif, fbs = mats
     new = stencils.local_update(nbr, known, inb, tt_center, veln, velpn,
                                 vel_map, stif, fbs, edges, model, model.dnx,
-                                causal=True)
+                                causal=True, use_ali=op[0], use_fd=op[1])
     old_center = tt_center.clone()
     acc_min = torch.minimum(old_center, new)
     acc_rep = torch.where(new < INF * 0.5, new, old_center)
@@ -196,13 +244,14 @@ def _stacked(models, tts, geometries, L, W):
 
 
 def _sweep_blocks(tts, models, fixeds, axis, rev, replace, graphed=False,
-                  geometries=None, neighbours=None):
+                  geometries=None, neighbours=None, op=(True, True)):
     """One directional Gauss-Seidel sweep along ``axis`` over blocks of the
     same shape, line by line in lockstep; ``replace`` is a bool tensor
     broadcasting against the source batch; ``graphed``: see ``gs_pass``;
-    ``geometries``: a ``Geometry`` per block (None: each block is a whole
-    grid).  The blocks are swept in a padded copy that is updated in
-    place: lines behind the current one hold this sweep's values.  Blocks
+    ``op``: the operator, (use_ali, use_fd); ``geometries``: a
+    ``Geometry`` per block (None: each block is a whole grid).  The
+    blocks are swept in a padded copy that is updated in place: lines
+    behind the current one hold this sweep's values.  Blocks
     on one device are stacked and updated together (``_stacked``).
 
     ``neighbours``: None, or per block the indices (before, after) of the
@@ -229,7 +278,7 @@ def _sweep_blocks(tts, models, fixeds, axis, rev, replace, graphed=False,
     for tt, model, fixed, (flags, wok, wfirst, wlast) in groups:
         work = torch.nn.functional.pad(tt, (2, 2, 2, 2), value=INF)
         consts = (replace.reshape(replace.shape + (1,)).to(tt.device), wok,
-                  wfirst, wlast, axis, model)
+                  wfirst, wlast, axis, model, op)
 
         def inputs(i, work=work, flags=flags, fixed=fixed, model=model):
             return (work[..., i: i + 5, :], flags[i], fixed[..., i, :],
@@ -269,11 +318,84 @@ def _refresh(works, neighbours, r, W):
             hi.copy_(works[after][..., r, 4: 6])
 
 
-def _sweep(tt, model, fixed, axis, rev, replace, graphed=False):
+def _sweep(tt, model, fixed, axis, rev, replace, graphed=False,
+           op=(True, True)):
     """One directional Gauss-Seidel sweep along ``axis`` over one whole
     grid; see ``_sweep_blocks``."""
     return _sweep_blocks([tt], [model], [fixed], axis, rev, replace,
-                         graphed)[0]
+                         graphed, op=op)[0]
+
+
+def _block_mats(model, axis, rows):
+    """Material views of the grid lines ``rows`` (a (B,) index), each
+    plane with a line axis before its width: (..., B, W)."""
+    fb = model.fallback_slowness
+    if axis == "z":
+        return (model.veln.index_select(-2, rows),
+                model.velpn.index_select(-2, rows),
+                model.vel_map.index_select(-2, rows),
+                model.stif.index_select(-3, rows),
+                [fb[..., f, :, :].index_select(-2, rows) for f in range(4)])
+
+    def col(a):
+        return a.index_select(-1, rows).transpose(-1, -2)
+    return (col(model.veln), col(model.velpn), col(model.vel_map),
+            model.stif.index_select(-2, rows).transpose(-3, -2),
+            [col(fb[..., f, :, :]) for f in range(4)])
+
+
+def _sweep_parallel(tt, model, fixed, axis, rev, replace, form, S,
+                    graphed=False):
+    """One directional sweep in the parallel-in-block order of the JAX
+    package's gs_pass (``inner`` = J > 0, ``block`` = B): the scan of the
+    S x S padded square (S = max(Z, X)) in blocks of B lines, the first
+    block at the scan's start, so a reverse sweep's blocks count from line
+    S - 1 and its S - L padding lines come first.  Each of the J
+    iterations updates every line of the block at once from the previous
+    iterate: the lines behind are the previous block's final ones, the
+    lines ahead the next block's old ones, and min or replace accumulates
+    against the previous iterate.  Padding lines are INF and fixed, so
+    they only place the block boundaries.  One ``_line`` call (or graph
+    replay) updates the B lines of an iteration."""
+    if axis == "x":
+        tt, fixed = tt.transpose(-1, -2), fixed.transpose(-1, -2)
+    L, W = tt.shape[-2], tt.shape[-1]
+    B, J = form.block, form.inner
+    nb = -(-S // B)
+    lo = 2 + nb * B - S  # a reverse sweep's last block reaches line S - nb B
+    hi = 2 + nb * B - L  # a forward sweep's last block reaches nb B - 1
+    dev = tt.device
+    work = torch.nn.functional.pad(tt, (2, 2, lo, hi), value=INF)
+    fx = torch.nn.functional.pad(fixed, (0, 0, lo, hi), value=True)
+    _, wok, wfirst, wlast = _masks(L, W, None, dev)
+    rep = replace.to(dev)
+    consts = (rep.reshape(rep.shape + (1, 1)), wok, wfirst, wlast, axis,
+              model, (form.use_ali, form.use_fd))
+
+    def inputs(k):
+        g = S - (k + 1) * B if rev else k * B
+        rows = torch.arange(g, g + B, device=dev)
+        il = rows[:, None]
+        flags = torch.stack([(il + d >= 0) & (il + d <= L - 1)
+                             for d in (-2, -1, 0, 1, 2)]
+                            + [il == 0, il == L - 1])
+        r0 = g + lo
+        band = work[..., r0 - 2: r0 + B + 2, :].unfold(-2, 5, 1)
+        return (g, band.transpose(-1, -2), flags, fx[..., r0: r0 + B, :],
+                _block_mats(model, axis, rows.clamp(0, L - 1)))
+
+    run = None
+    for k in range(nb):
+        g, band, flags, frow, mats = inputs(k)
+        if graphed and run is None:
+            run = _graphed_line((band, flags, frow, mats), consts)
+        for _ in range(J):
+            new = (run(band, flags, frow, mats) if graphed
+                   else _line(band, flags, frow, consts[0], mats,
+                              *consts[1:]))
+            work[..., g + lo: g + lo + B, 2: 2 + W] = new
+    out = work[..., lo: lo + L, 2: 2 + W]
+    return out.transpose(-1, -2) if axis == "x" else out
 
 
 def slab_sweep(blocks, models, fixeds, axis, rev, replace, geometries,
@@ -295,23 +417,51 @@ def slab_sweep(blocks, models, fixeds, axis, rev, replace, geometries,
 
 
 def gs_pass(tt, model: gridlib.Model, fixed, replace=False, block: int = 1,
-            inner: int = 0, use_ali: bool = True, use_fd: bool = True,
+            inner: int = 0, inner_use_ali: bool = False,
+            use_ali: bool = True, use_fd: bool = True,
             graphed: bool = False):
     """One full pass (z-fwd, z-rev, x-fwd, x-rev) over ``tt`` (..., Z, X).
     ``replace`` is a bool or a bool tensor per source (phase-2 replace vs
     phase-1 min accumulation).  ``model`` may carry a leading batch of
-    per-source material fields.  ``graphed`` (CUDA fields only) replays
-    each line's operations from a CUDA graph: the same result with far
+    per-source material fields.
+
+    ``use_ali``/``use_fd``: the strict order's operator (``local_update``).
+    ``inner`` = J > 0 with ``block`` = B >= 2 runs the parallel-in-block
+    order instead (``_sweep_parallel``), with the FD-only operator unless
+    ``inner_use_ali``; with ``inner == 0``, ``block`` changes nothing.
+    ``graphed`` (CUDA fields only) replays each line's (or each block
+    iteration's) operations from a CUDA graph: the same result with far
     less host time, for checking the kernel on large grids."""
     global CALLS
-    check_form(inner=inner, use_ali=use_ali, polish_use_fd=use_fd)
+    form = pass_form(block, inner, inner_use_ali, use_ali, use_fd)
     if graphed and not tt.is_cuda:
         raise ValueError("a graphed pass needs CUDA fields")
     CALLS += 1
     replace = torch.as_tensor(replace, device=tt.device)
+    S = max(tt.shape[-2], tt.shape[-1])
     for axis, rev in (("z", False), ("z", True), ("x", False), ("x", True)):
-        tt = _sweep(tt, model, fixed, axis, rev, replace, graphed)
+        if form.inner:
+            tt = _sweep_parallel(tt, model, fixed, axis, rev, replace, form,
+                                 S, graphed)
+        else:
+            tt = _sweep(tt, model, fixed, axis, rev, replace, graphed,
+                        op=(form.use_ali, form.use_fd))
     return tt.contiguous()
+
+
+def gs_pass_unshared(tt, model: gridlib.Model, fixed, replace=False,
+                     block: int = 1):
+    """One strictly ordered full pass, as the JAX package's
+    gs_pass_unshared (four separately compiled sweeps there, the same
+    result as ``gs_pass``; ``block`` changes nothing)."""
+    return gs_pass(tt, model, fixed, replace=replace)
+
+
+def jacobi_pass(tt, model: gridlib.Model, fixed):
+    """One whole-grid Jacobi pass of the causal update with min
+    accumulation (the JAX package's jacobi_pass)."""
+    return torch.minimum(tt, stencils.full_grid_update(tt, model, fixed,
+                                                       causal=True))
 
 
 def delta_scale(new, old):
@@ -324,7 +474,7 @@ def delta_scale(new, old):
 
 
 def two_phase(tt0, pass_fn, per_source, rel_tol, max_passes, min_passes,
-              polish_passes, max_polish_passes=None):
+              polish_passes, max_polish_passes=None, two_loop=False):
     """The two-phase fixpoint loop over batched fields (B, Z, X).
 
     ``pass_fn(tt, replace, active)`` runs one pass for the sources where
@@ -336,6 +486,12 @@ def two_phase(tt0, pass_fn, per_source, rel_tol, max_passes, min_passes,
     together.  ``tt0`` may also be a list of source chunks (the sharded
     solve), handed to ``pass_fn`` as it is, with the flags of all chunks'
     sources in order.  Returns (field, SolveInfo).
+
+    ``two_loop``: the JAX package's two-loop form (``sweep.two_loop``),
+    whose phase 1 is a loop of its own: it runs no pass when
+    ``max_passes`` is 0, and reports ``converged`` only for a stop that
+    met ``min_passes``.  ``pass_fn`` picks each source's operator from its
+    phase (``replace``).
     """
     chunks = tt0 if isinstance(tt0, (list, tuple)) else [tt0]
     B = sum(c.shape[0] for c in chunks)
@@ -345,7 +501,7 @@ def two_phase(tt0, pass_fn, per_source, rel_tol, max_passes, min_passes,
     tol = npdt.type(rel_tol)
     floor = npdt.type(1e-30)
     k = np.zeros(G, np.int64)
-    phase = np.zeros(G, np.int64)
+    phase = np.full(G, int(two_loop and max_passes <= 0), np.int64)
     n1 = np.zeros(G, np.int64)
     conv = np.zeros(G, bool)
     tt = tt0
@@ -369,22 +525,68 @@ def two_phase(tt0, pass_fn, per_source, rel_tol, max_passes, min_passes,
         new_k = np.where(done1, 0, np.where(done2, mp2, k1))
         k = np.where(running, new_k, k)
         n1 = np.where(running & done1, k1, n1)
-        conv = np.where(running & done1, converged, conv)
+        stop = (converged & (k1 >= min_passes)) if two_loop else converged
+        conv = np.where(running & done1, stop, conv)
         phase = np.where(running & done1, 1, phase)
     if per_source:
         return tt, SolveInfo(passes=n1, converged=conv)
     return tt, SolveInfo(passes=int(n1[0]), converged=bool(conv[0]))
 
 
-def plain_pass(tt, model, fixed, replace, active, graphed=False):
-    """One plain pass in the ``two_phase`` protocol (``graphed``: see
+def _take_sources(model, idx):
+    """``model`` with its per-source material planes (a leading batch
+    axis) cut to the sources ``idx``; a shared model as it is."""
+    if model.veln.dim() < 3:
+        return model
+    return dataclasses.replace(
+        model, veln=model.veln[idx], velpn=model.velpn[idx],
+        vel_map=model.vel_map[idx], stif=model.stif[idx],
+        fallback_slowness=model.fallback_slowness[idx])
+
+
+def plain_pass(tt, model, fixed, replace, active, graphed=False,
+               form=DEFAULT):
+    """One plain pass of ``form`` in the ``two_phase`` protocol, over the
+    active sources only (the others keep their field; ``graphed``: see
     ``gs_pass``)."""
-    rep = torch.as_tensor(replace, device=tt.device)
-    new = gs_pass(tt, model, fixed, replace=rep, graphed=graphed)
-    act = torch.as_tensor(active, device=tt.device)[:, None, None]
-    new = torch.where(act, new, tt)
+    act = np.asarray(active, bool)
+    rep = np.array(np.broadcast_to(np.asarray(replace, bool), act.shape))
+    kw = dict(block=form.block, inner=form.inner, inner_use_ali=form.use_ali,
+              use_ali=form.use_ali, use_fd=form.use_fd, graphed=graphed)
+    if act.all():
+        new = gs_pass(tt, model, fixed,
+                      replace=torch.as_tensor(rep, device=tt.device), **kw)
+    else:
+        idx = torch.as_tensor(np.flatnonzero(act), device=tt.device)
+        new = tt.clone()
+        if len(idx):
+            new[idx] = gs_pass(
+                tt[idx], _take_sources(model, idx), fixed[idx],
+                replace=torch.as_tensor(rep[act], device=tt.device), **kw)
     delta, scale = delta_scale(new, tt)
     return new, delta.cpu().numpy(), scale.cpu().numpy()
+
+
+def split_pass(tt, replace, active, forms, run):
+    """One pass of a fixpoint whose phases differ in form (``forms``: the
+    phase-1 and the polish form, ``phase_forms``): ``run(tt, replace,
+    active, form)`` runs once for the active sources of each phase that
+    has any (a per-source patch stage may hold sources of both phases in
+    one pass).  Returns (field, delta, scale) as ``run`` does."""
+    act = np.asarray(active, bool)
+    rep = np.array(np.broadcast_to(np.asarray(replace, bool), act.shape))
+    if forms[0] == forms[1]:
+        return run(tt, rep, act, forms[0])
+    delta = scale = None
+    for form, mask in ((forms[0], act & ~rep), (forms[1], act & rep)):
+        if not mask.any():
+            continue
+        tt, d, s = run(tt, rep, mask, form)
+        delta = d if delta is None else np.where(mask, d, delta)
+        scale = s if scale is None else np.where(mask, s, scale)
+    if delta is None:
+        return run(tt, rep, act, forms[0])
+    return tt, delta, scale
 
 
 def solve_fixpoint(tt0, model: gridlib.Model, fixed, rel_tol: float = 1e-6,
@@ -395,15 +597,23 @@ def solve_fixpoint(tt0, model: gridlib.Model, fixed, rel_tol: float = 1e-6,
                    polish_use_fd: bool = True):
     """Two-phase fixpoint solve of (Z, X) or (B, Z, X) fields that share
     ``model``, with one joint stop test (delta and scale are maxima over
-    the whole batch).  Returns (field, SolveInfo)."""
-    check_form(inner, use_ali, phase1_use_ali, polish_use_fd)
+    the whole batch).  Phase 1 runs ``phase1_use_ali`` (None:
+    ``use_ali``) with ``block``/``inner``, the polish ``use_ali`` with
+    ``polish_use_fd``, strictly ordered (``phase_forms``, ``two_loop``).
+    Returns (field, SolveInfo)."""
+    forms = phase_forms(block, inner, use_ali, phase1_use_ali, polish_use_fd)
     single = tt0.dim() == 2
     tt = tt0[None] if single else tt0
     fx = fixed[None] if single else fixed
 
+    def run(t, rep, act, form):
+        return plain_pass(t, model, fx, rep, act, form=form)
+
     def pass_fn(t, rep, act):
-        return plain_pass(t, model, fx, rep, act)
+        return split_pass(t, rep, act, forms, run)
 
     out, info = two_phase(tt, pass_fn, False, rel_tol, max_passes,
-                          min_passes, polish_passes, max_polish_passes)
+                          min_passes, polish_passes, max_polish_passes,
+                          two_loop(inner, use_ali, phase1_use_ali,
+                                   polish_use_fd))
     return (out[0] if single else out), info

@@ -148,17 +148,19 @@ def solve_ttf_sharded(model: gridlib.Model, scx, scz, mesh: Mesh,
     first); the model is replicated.  Each entry runs the staged solve of
     its sources on its device; the final stage's pass-to-pass delta and
     scale are maxima over every entry (and every process), so all stop
-    together, as the unsharded solve does.  Returns (n_src, Z, X) on the
-    first entry's device."""
+    together, as the unsharded solve does; every sweep form of ``cfg``
+    runs but the multigrid start, which raises.  Returns (n_src, Z, X)
+    on the first entry's device."""
     group = _group()
     world = 1 if group is None else group[1]
     scx, scz, n_real = pad_sources(np.asarray(scx, np.float64),
                                    np.asarray(scz, np.float64),
                                    mesh.size * world)
+    if cfg.multigrid:
+        raise NotImplementedError("the multigrid start of a source-sharded "
+                                  "solve (solver.solve_ttf runs it)")
     base, stages, seed_side, seed_sign = _base_stages(
         model, int(subgrid_size), cfg, stages, seed_side)
-    sweep.check_form(cfg.sweep_inner, cfg.use_ali, cfg.phase1_use_ali,
-                     cfg.final_polish_fd)
     models, parts = {}, []
     for sl, dev in _chunks(len(scx), mesh, axis, group):
         if dev not in models:
@@ -171,15 +173,17 @@ def solve_ttf_sharded(model: gridlib.Model, scx, scz, mesh: Mesh,
         parts.append((tt, fixed, m))
     packs = {dev: cuda_sweep.pack_model(m) for dev, m in models.items()
              if dev.type == "cuda"}
+    forms = sweep.phase_forms(cfg.sweep_block, cfg.sweep_inner, cfg.use_ali,
+                              cfg.phase1_use_ali, cfg.final_polish_fd)
 
-    def pass_fn(chunks, rep, act):
+    def run(chunks, rep, act, form):
         new, delta, scale = [], [], []
         o = 0
         for t, (_, fixed, m) in zip(chunks, parts):
             n = t.shape[0]
             nt, d, s = cuda_sweep.sweep_pass(
                 t, m, fixed, rep[o:o + n], act[o:o + n],
-                packed=packs.get(t.device))
+                packed=packs.get(t.device), form=form)
             new.append(nt)
             delta.append(d.max())
             scale.append(s.max())
@@ -189,8 +193,14 @@ def solve_ttf_sharded(model: gridlib.Model, scx, scz, mesh: Mesh,
             ds = _all_max(ds, group).astype(ds.dtype)
         return new, ds[:1], ds[1:]
 
-    out, _ = sweep.two_phase([p[0] for p in parts], pass_fn, False,
-                             min_passes=2, **solverlib._final_budget(cfg))
+    def pass_fn(chunks, rep, act):
+        return sweep.split_pass(chunks, rep, act, forms, run)
+
+    out, _ = sweep.two_phase(
+        [p[0] for p in parts], pass_fn, False, min_passes=2,
+        two_loop=sweep.two_loop(cfg.sweep_inner, cfg.use_ali,
+                                cfg.phase1_use_ali, cfg.final_polish_fd),
+        **solverlib._final_budget(cfg))
     first = parts[0][0].device
     out = torch.cat([t.to(first) for t in out])
     if group is not None:

@@ -15,7 +15,10 @@ sweep kernel K1 on the GPU, its plain twin on the CPU).
 Where the JAX package vmaps over sources, this module carries an explicit
 source batch: patch models hold (B, Zp, Xp) material fields and the patch
 fixpoints stop per source; the final stage solves the (B, Z, X) batch
-with one joint stop test, as the JAX package does.
+with one joint stop test, as the JAX package does.  Every sweep form of
+``SolveConfig`` runs (the operators, the parallel-in-block sweeps, the
+two-loop fixpoint, the multigrid start of the final stage), through K1 on
+the GPU.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 
 import torch
 
@@ -38,12 +42,24 @@ __all__ = ["SolveConfig", "solve_ttf", "solve_one", "coarse_stages",
 
 @dataclasses.dataclass(frozen=True)
 class SolveConfig:
-    """Solver iteration budget (fields and defaults of the JAX package's
-    SolveConfig that the main path reads).  ``sweep_block`` and
-    ``patch_block`` are XLA dispatch knobs and are ignored; ``sweep_inner``
-    / ``patch_inner`` other than 0, ``use_ali=False``, a differing
-    ``phase1_use_ali`` and ``final_polish_fd=False`` select sweep forms
-    this port leaves out and raise NotImplementedError when solving."""
+    """Solver iteration budget and sweep forms: the JAX package's
+    SolveConfig, field for field, with its defaults.
+
+    ``use_ali`` (default True) is the operator of every pass: the ALI
+    update with the FD fallback, or (False) the FD fallback alone.
+    ``phase1_use_ali`` (None: ``use_ali``) gives phase 1 an operator of
+    its own (the two-loop fixpoint: an FD envelope, then the ALI polish,
+    for concave shear modes).  ``final_polish_fd=False`` drops the FD
+    fallback from the final stage's polish (its points keep their phase-1
+    value where no ALI stencil applies); patches always keep it.
+    ``sweep_inner``/``patch_inner`` = J > 0 run phase 1 of the final
+    stage/the patches as parallel-in-block sweeps, J iterations over
+    blocks of ``sweep_block``/``patch_block`` lines (at least 2, else the
+    order stays strict; with J = 0 the block sizes change nothing).
+    ``multigrid`` starts the final stage from a 3x-decimated joint solve
+    (``mg_passes`` phase-1 and ``mg_polish`` polish passes), prolonged
+    bilinearly where the injection left points unknown; the JAX package
+    measured it to degrade accuracy and warns, as this port does."""
 
     rel_tol: float = 1e-3
     patch_max_passes: int = 10
@@ -60,14 +76,16 @@ class SolveConfig:
     use_ali: bool = True
     phase1_use_ali: bool | None = None
     final_polish_fd: bool = True
+    multigrid: bool = False
+    mg_passes: int = 12
+    mg_polish: int = 2
 
     @classmethod
     def accuracy(cls, **overrides) -> "SolveConfig":
         """Accuracy preset: a tight phase-1 gate, larger pass budgets and a
         residual-driven final polish (the JAX package's preset, field for
-        field).  ``overrides`` replace preset fields; a field this port
-        leaves out (``multigrid``, ``mg_passes``, ``mg_polish``) raises
-        TypeError, as the dataclass does for any unknown field."""
+        field).  ``overrides`` replace preset fields; an unknown field
+        raises TypeError, as the dataclass does."""
         kw = dict(rel_tol=2e-4, patch_max_passes=16, final_max_passes=32,
                   polish_passes=8, final_rel_tol=2e-4,
                   final_polish_passes=8, final_max_polish=32)
@@ -243,12 +261,13 @@ def _source_cells(model, scx, scz):
 
 
 def _patch_solve(tt, patches, fixed, cfg):
-    """Per-source fixpoint of a batch of patches."""
+    """Per-source fixpoint of a batch of patches (the polish always with
+    the FD fallback: patches feed the injection)."""
     return cuda_sweep.solve_fixpoint(
         tt, patches, fixed, rel_tol=cfg.rel_tol,
         max_passes=cfg.patch_max_passes, polish_passes=cfg.polish_passes,
-        per_source=True, inner=cfg.patch_inner, use_ali=cfg.use_ali,
-        phase1_use_ali=cfg.phase1_use_ali,
+        per_source=True, block=cfg.patch_block, inner=cfg.patch_inner,
+        use_ali=cfg.use_ali, phase1_use_ali=cfg.phase1_use_ali,
     )
 
 
@@ -302,13 +321,73 @@ def _final_budget(cfg):
         max_polish_passes=cfg.final_max_polish)
 
 
+def _decimate_model(model: gridlib.Model, c: int) -> gridlib.Model:
+    """Stride-``c`` decimation of a model (coarse node k at fine node c k),
+    for the multigrid start only: the ray tables are dropped."""
+    return gridlib.Model(
+        veln=model.veln[::c, ::c], velpn=model.velpn[::c, ::c],
+        vel_map=model.vel_map[::c, ::c], stif=model.stif[::c, ::c],
+        group_tab=model.group_tab, phase_tab=model.phase_tab,
+        fallback_slowness=model.fallback_slowness[:, ::c, ::c],
+        dnx=model.dnx * c, ray_curves=None, ray_curve_idx=None,
+        ray_skew=None, has_stif=model.has_stif, phase_info=model.phase_info,
+        group_info=model.group_info)
+
+
+def _prolong3(tt_c, Z, X):
+    """The exact bilinear 3x prolongation of (B, Zc, Xc) fields, coarse
+    node k on fine node 3k, cut to (B, Z, X): the JAX package's nine
+    weighted combinations, in its order of operations."""
+    B, Zc, Xc = tt_c.shape
+    t = torch.cat([tt_c, tt_c[:, -1:, :]], 1)
+    t = torch.cat([t, t[:, :, -1:]], 2)
+    rows = []
+    for rz in range(3):
+        wz = rz / 3.0
+        cols = []
+        for rx in range(3):
+            wx = rx / 3.0
+            cols.append((1 - wz) * (1 - wx) * t[:, :Zc, :Xc]
+                        + (1 - wz) * wx * t[:, :Zc, 1: Xc + 1]
+                        + wz * (1 - wx) * t[:, 1: Zc + 1, :Xc]
+                        + wz * wx * t[:, 1: Zc + 1, 1: Xc + 1])
+        rows.append(torch.stack(cols, -1).reshape(B, Zc, 3 * Xc))
+    up = torch.stack(rows, 2).reshape(B, 3 * Zc, 3 * Xc)
+    return up[:, :Z, :X]
+
+
+MULTIGRID_WARNING = (
+    "SolveConfig.multigrid is experimental and known to DEGRADE "
+    "accuracy (up to 7e-2 relative error on the weld workload: the "
+    "prolonged coarse guess undershoots and the monotone phase-1 "
+    "sweep cannot raise it) with no measured speedup; do not use "
+    "for production solves.")
+
+
+def _multigrid_start(model, tt, fixed, cfg):
+    """The final stage's multigrid start: a joint fixpoint on the
+    3x-decimated model (the default operator, ``mg_passes`` and
+    ``mg_polish``), prolonged into the points the injection left
+    unknown."""
+    warnings.warn(MULTIGRID_WARNING, stacklevel=3)
+    Z, X = model.shape
+    tt_c, _ = cuda_sweep.solve_fixpoint(
+        tt[:, ::3, ::3].contiguous(), _decimate_model(model, 3),
+        fixed[:, ::3, ::3].contiguous(), rel_tol=cfg.rel_tol,
+        max_passes=cfg.mg_passes, polish_passes=cfg.mg_polish)
+    return torch.where(tt < INF * 0.5, tt, _prolong3(tt_c, Z, X))
+
+
 def _stage_final(model, prev_tt, prev_bz, prev_bx, cfg):
-    """Full-grid stage: inject, then one joint fixpoint over all sources."""
+    """Full-grid stage: inject (and, with ``cfg.multigrid``, start from the
+    decimated solve), then one joint fixpoint over all sources."""
     tt, fixed = _final_inputs(model, prev_tt, prev_bz, prev_bx)
+    if cfg.multigrid:
+        tt = _multigrid_start(model, tt, fixed, cfg)
     return cuda_sweep.solve_fixpoint(
-        tt, model, fixed, **_final_budget(cfg), inner=cfg.sweep_inner,
-        use_ali=cfg.use_ali, phase1_use_ali=cfg.phase1_use_ali,
-        polish_use_fd=cfg.final_polish_fd,
+        tt, model, fixed, **_final_budget(cfg), block=cfg.sweep_block,
+        inner=cfg.sweep_inner, use_ali=cfg.use_ali,
+        phase1_use_ali=cfg.phase1_use_ali, polish_use_fd=cfg.final_polish_fd,
     )
 
 
@@ -320,14 +399,16 @@ def solve_one(model: gridlib.Model, scx, scz, stages, seed_side: int,
     full-grid stage.
 
     The JAX package's single-source driver, which differs from the batched
-    ``solve_ttf`` in what it reads of ``cfg``: its final stage runs the
+    ``solve_ttf`` in what it reads of ``cfg``: it takes the operators
+    (``use_ali``, ``phase1_use_ali``), but its final stage runs the
     fixed-count polish (``final_max_polish`` is ignored) with the FD
-    fallback (``final_polish_fd`` is ignored), and its sweeps are strictly
-    ordered (``sweep_inner`` and ``patch_inner`` are ignored); the stages
-    come from the caller (``stage3_half`` is ignored)."""
+    fallback (``final_polish_fd`` is ignored) and no multigrid start
+    (``multigrid`` is ignored), and its sweeps are strictly ordered
+    (``sweep_inner`` and ``patch_inner`` are ignored); the stages come
+    from the caller (``stage3_half`` is ignored)."""
     cfg = dataclasses.replace(cfg, final_max_polish=None,
                               final_polish_fd=True, sweep_inner=0,
-                              patch_inner=0)
+                              patch_inner=0, multigrid=False)
     scx = torch.as_tensor(scx, device=model.device).to(model.dtype)
     scz = torch.as_tensor(scz, device=model.device).to(model.dtype)
     return _staged_solve(model, scx.reshape(1), scz.reshape(1), stages,

@@ -10,7 +10,7 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    and power limit;
 2. builds the kernels from ``alifmm_tpu_torch/csrc`` with nvcc, one
    compiler per source, all at once: the sweep kernel K1 and the slab
-   sweep K5 (``sweep.cu``),
+   sweep K5 (``sweep.cu``), K1's other forms (``sweep_forms.cu``),
    the ray kernels K2 and K3 (``rays.cu``) and the descent march K4
    (``descent.cu``); prints ptxas' registers and spills per kernel;
 3. holds K1 against its plain PyTorch twin on the card, in float64 and
@@ -20,10 +20,12 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    isotropic 64 x 64) at several launch shapes, and a full fixpoint on
    48 x 56 (equal pass counts in float64).  The eager twin is bound by
    the host's per-operation cost, so this phase runs in a second process
-   (``chip_smoke.py --k1-twin``, in inference mode), started as soon as
-   ``sweep.cu`` is built: beside the other sources' compilation and the
-   checks that time nothing (4, 4b, 4c, 5b, 11a, 12a), which run first
-   for that reason; its log is printed when it ends, before phase 5;
+   (``chip_smoke.py --k1-twin``, in inference mode, with phase 14a's
+   float64 half), started as soon as ``sweep.cu`` and ``sweep_forms.cu``
+   are built: beside the other sources' compilation and the checks that
+   time nothing (4, 4b, 4c, 5b, 11a, 12a and 14a's float32 half), which
+   run first for that reason; its log is printed when it ends, before
+   phase 5;
 4. holds the ray kernels against their plain twins on the card, in
    float64 and float32: the four segment integrators on seeded segments
    over the 48 x 56 and the weld model (``check_segments``), and on
@@ -192,7 +194,31 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    and the Christoffel model (a min pass), K2 and K3 on the facade's ray inputs of the gradient
    and the Christoffel models in float32 and float64; then K1 warm at 3
    x 201 x 201 and 2 x 201 x 201 on the gradient model beside its
-   bound, its timed pass equal to the twin's.
+   bound, its timed pass equal to the twin's;
+14. K1's other forms (``csrc/sweep_forms.cu``: the FD-only and the
+   FD-free operator, the parallel-in-block sweeps): (14a, float64 in
+   phase 3's process, float32 in the main process while it waits for
+   that one) each form against the graphed twin, max abs 0, on
+   ``FORM_CASES`` (48 x 56 with every B in 4, 8, J in 1, 2,
+   4, inner operator and accumulation; 37 x 131, the weld's 109 x 109
+   patches and the tie-heavy isotropic 64 x 64), a pass whose sources
+   are split between phase 1 and the polish, and the two-loop fixpoints
+   on 48 x 56 in float64 with equal pass counts; (14b) the weld slice
+   (phase 6's budgets and knobs) in each form of ``FORM_SLICES``
+   (``final_polish_fd=False``, ``use_ali=False``,
+   ``phase1_use_ali=False``, ``sweep_inner = patch_inner = 4`` with
+   blocks 8 and 4, ``multigrid=True``, which must warn), each a warm-up
+   run and a timed one with every count set to 0 just before it: its
+   seconds, stage split, final passes, K1 launches by form and its
+   fields' and ray times' deviation from phase 6's, every ray arrived;
+   then ``ALI_FMM(solve_opts=final_polish_fd=False)`` timed likewise,
+   its times equal to the direct path's; (14c) the qSV weld under
+   ``for_mode("qsv", phase1_use_ali=False)`` under phase 11c's ray rules,
+   its passes and deviation from 11c's fields; (14d) each form timed
+   warm beside its bound (``form_ops``) and K1's default pass, at 31 x
+   424 x 500 (FD-only, FD-free, B = 8 with J = 2 and 4) and at the
+   tutorial's 3 x 201 x 201 (J = 2 and 4), each timed pass equal to its
+   twin's.
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``.
@@ -233,6 +259,9 @@ TOL_SOLVE = {torch.float64: 1e-10, torch.float32: 1e-4}
 # loads, two multiply-adds and the scale) about 30; a constant column 3.
 OPS_PER_UPDATE = 1000
 OPS_PHASE_EIGEN, OPS_PHASE_LOOKUP, OPS_PHASE_CONSTANT = 85, 30, 3
+# the FD fallback's share: 8 quadrants at ~30 and 8 knight pairs at ~20
+# (the FD-only operator's whole update; the FD-free one skips it)
+OPS_FD = 8 * 30 + 8 * 20
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # tests/test_analytic_truth.py: isotropic envelope bounds (max, mean)
 ANALYTIC_MAX, ANALYTIC_MEAN = 2.4e-2, 1.5e-2
@@ -992,6 +1021,8 @@ def reset_counts():
 
     cuda_sweep.LAUNCHES = 0
     cuda_sweep.SLAB_LAUNCHES = 0
+    for name in cuda_sweep.FORM_LAUNCHES:
+        cuda_sweep.FORM_LAUNCHES[name] = 0
     sweep.CALLS = 0
     rays.PLAIN_STEPS = 0
     for name in cuda_rays.LAUNCHES:
@@ -1004,7 +1035,8 @@ def read_counts():
 
     return dict(sweep_pass=cuda_sweep.LAUNCHES,
                 slab_sweep=cuda_sweep.SLAB_LAUNCHES, plain_passes=sweep.CALLS,
-                plain_steps=rays.PLAIN_STEPS, **cuda_rays.LAUNCHES)
+                plain_steps=rays.PLAIN_STEPS, **cuda_rays.LAUNCHES,
+                **{f"k1_{k}": v for k, v in cuda_sweep.FORM_LAUNCHES.items()})
 
 
 def check_counts(counts, what):
@@ -1536,13 +1568,27 @@ def update_ops(packed):
     return ops
 
 
-def bound_ms(tt, fixed, packed):
+def form_ops(packed, form):
+    """``update_ops`` for a pass of ``form`` (``sweep.Form``): the FD
+    fallback alone (``OPS_FD``: no stencil selection, no finish), the
+    update without it, and J updates a line in the parallel-in-block
+    order."""
+    ops = update_ops(packed)
+    if not form.use_ali:
+        ops = torch.full_like(ops, OPS_FD)
+    elif not form.use_fd:
+        ops = ops - OPS_FD
+    return ops * max(form.inner, 1)
+
+
+def bound_ms(tt, fixed, packed, form=None):
     """The least time one pass could take on an H100 (SXM data sheet, 700
     W): the larger of its fp32 operations over 67 TFLOP/s and its bytes
     over 3.35 TB/s.  Operations: 4 sweeps x the points that are not fixed
-    x each point's ``update_ops``; bytes: the field read and written once,
-    the fixed mask and the 12 material planes read once."""
-    per = update_ops(packed)
+    x each point's ``update_ops`` (``form_ops`` for another form); bytes:
+    the field read and written once, the fixed mask and the 12 material
+    planes read once."""
+    per = update_ops(packed) if form is None else form_ops(packed, form)
     free = (~fixed).sum(0, keepdim=True) if per.shape[0] == 1 else ~fixed
     ops = 4 * int((per * free).sum())
     item = tt.element_size()
@@ -1552,18 +1598,22 @@ def bound_ms(tt, fixed, packed):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_k1(tt, fixed, packed, cluster=None, lanes=None, n=10):
-    """Warm K1 time per pass (ms), CUDA events over n launches."""
-    from alifmm_tpu_torch.ops import cuda_sweep
+def time_k1(tt, fixed, packed, cluster=None, lanes=None, n=10, form=None,
+            replace=False):
+    """Warm K1 time per pass (ms), CUDA events over n launches (``form``:
+    a ``sweep.Form``, the default one if None)."""
+    from alifmm_tpu_torch.ops import cuda_sweep, sweep
 
     B = tt.shape[0]
-    rep, act = np.zeros(B, bool), np.ones(B, bool)
-    out, _, _ = cuda_sweep._launch(tt, fixed, packed, rep, act, cluster, lanes)
+    rep, act = np.full(B, bool(replace)), np.ones(B, bool)
+    kw = dict(form=sweep.DEFAULT if form is None else form)
+    out, _, _ = cuda_sweep._launch(tt, fixed, packed, rep, act, cluster, lanes,
+                                   **kw)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(n):
-        cuda_sweep._launch(tt, fixed, packed, rep, act, cluster, lanes)
+        cuda_sweep._launch(tt, fixed, packed, rep, act, cluster, lanes, **kw)
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / n, out
@@ -2976,7 +3026,7 @@ def phase_qsv_homogeneous(device):
     return out
 
 
-def qsv_search_ends(out, rec_xy, what):
+def qsv_search_ends(out, rec_xy, what, edge_rule=True):
     """How the plane search's rays end on the qSV weld: every time finite
     and positive, and every ray arrived within the step budget or finished
     early because its next plane left the grid (reason 1: the reference's
@@ -2984,7 +3034,9 @@ def qsv_search_ends(out, rec_xy, what):
     last marched vertex within two steps of its receiver.  The JAX package
     finishes ray 262 (top transducer 8 to bottom transducer 14) so, one
     step and a half from its receiver on the bottom edge, at the same
-    vertices (PERF.md).  Returns the counts and the early rays."""
+    vertices (PERF.md).  ``edge_rule=False`` records the early rays
+    without that rule (the times must still be finite and positive).
+    Returns the counts and the early rays."""
     from alifmm_tpu_torch import weld_data
 
     bx, by, lengths, times, reason = out
@@ -3003,14 +3055,15 @@ def qsv_search_ends(out, rec_xy, what):
         f"{int(ok_t.sum())}")
     check(bool(ok_t.all()), f"{what}: {int((~ok_t).sum())} times not "
           f"finite and positive")
-    check(all(r["reason"] == 1 and r["steps_to_receiver"] < 2.0
-              for r in rays),
+    check(not edge_rule or all(r["reason"] == 1
+                               and r["steps_to_receiver"] < 2.0
+                               for r in rays),
           f"{what}: rays that neither arrived nor finished at the grid's "
           f"edge near their receiver: {rays}")
     return dict(arrived=int(arrived.sum()), early=rays)
 
 
-def qsv_auto_arrival(model, ttfs, inputs, what):
+def qsv_auto_arrival(model, ttfs, inputs, what, lands=True):
     """The auto tracer on the qSV fields with its defaults (the facade's
     ``ray_opts={"tracer": "auto"}``), directly, beside the descent and the
     plane search with theirs: a ray auto kept is the descent's, a retraced
@@ -3019,8 +3072,10 @@ def qsv_auto_arrival(model, ttfs, inputs, what):
     ray must arrive unless neither tracer lands it: on this weld the JAX
     package's descent runs out of steps and its search truncates (reason
     2) on rays 351, 502, 504 and 812, and auto takes the search's rays
-    (PERF.md).  No auto time may be above its descent time.  Returns
-    auto's times and the counts."""
+    (PERF.md).  No auto time may be above its descent time.  With
+    ``lands=False`` the rays one tracer lands and auto does not are
+    recorded (``one_lands``), not held.  Returns auto's times and the
+    counts."""
     from alifmm_tpu_torch import rays, weld_data
 
     s = weld_data.SUBGRID
@@ -3058,9 +3113,10 @@ def qsv_auto_arrival(model, ttfs, inputs, what):
         f"{int(fin.sum())}; auto times above the descent's "
         f"{res['above_descent']}; not arrived: {res['not_arrived']}")
     neither = ~ok_d & ~ok_s
-    check(bool((ok | neither).all()),
+    res["one_lands"] = torch.nonzero(~ok & ~neither).flatten().tolist()
+    check(not lands or not res["one_lands"],
           f"{what}: rays that one tracer lands and auto does not: "
-          f"{torch.nonzero(~ok & ~neither).flatten().tolist()}")
+          f"{res['one_lands']}")
     check(bool(fin.all()) and res["above_descent"] == 0,
           f"{what}: {int((~fin).sum())} times not finite and positive, "
           f"{res['above_descent']} above the descent's")
@@ -3068,13 +3124,17 @@ def qsv_auto_arrival(model, ttfs, inputs, what):
 
 
 QSV_RAYS_FILE = os.path.join("smoke_out", "qsv_rays_not_arrived.npz")
+# (14c) the same for the qSV weld with an FD envelope
+QSV_FD_RAYS_FILE = os.path.join("smoke_out",
+                                "qsv_fd_envelope_rays_not_arrived.npz")
 
 
-def save_not_arrived(ttfs, q_inputs, out, early, auto_times, lost):
+def save_not_arrived(ttfs, q_inputs, out, early, auto_times, lost,
+                     path=QSV_RAYS_FILE):
     """Write the qSV rays that did not arrive (the plane search's ``early``
     rays with the weld's knobs, auto's ``lost`` ones) with their receiver
-    fields to QSV_RAYS_FILE, for tests/qsv_ray_records.py, which traces
-    them with the JAX package."""
+    fields to ``path``, for tests/qsv_ray_records.py, which traces them
+    with the JAX package."""
     tidx, src, rec = q_inputs[5], q_inputs[3], q_inputs[4]
     s_rays = np.array([r["ray"] for r in early], np.int64)
     a_rays = np.array([r["ray"] for r in lost], np.int64)
@@ -3087,14 +3147,14 @@ def save_not_arrived(ttfs, q_inputs, out, early, auto_times, lost):
     def host(t, idx):
         return t.cpu().numpy()[idx]
 
-    os.makedirs(os.path.dirname(QSV_RAYS_FILE), exist_ok=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(
-        QSV_RAYS_FILE, rays=both, tidx=ti, field_ids=ids,
+        path, rays=both, tidx=ti, field_ids=ids,
         fields=host(ttfs, ids), src=host(src, both), rec=host(rec, both),
         search_rays=s_rays, search_len=host(out[2], s_rays),
         search_reason=host(out[4], s_rays), search_time=host(out[3], s_rays),
         auto_rays=a_rays, auto_time=host(auto_times, a_rays))
-    log(f"  the rays that did not arrive and their fields: {QSV_RAYS_FILE}")
+    log(f"  the rays that did not arrive and their fields: {path}")
 
 
 def check_over_qp(times, qp_times, what):
@@ -3157,6 +3217,7 @@ def phase_qsv_slice(inputs, qp_times, qp_final_ms, device):
           "qSV weld fields not finite everywhere")
     res = dict(wall=wall, solve=t_solve, rays=t_rays, stages=stages,
                passes=info.passes, converged=info.converged, counts=counts,
+               ttfs=ttfs,
                search=qsv_search_ends(out, q_inputs[4], "qSV weld, search"),
                over_qp=check_over_qp(times, qp_times, "qSV weld, direct"))
 
@@ -4119,9 +4180,401 @@ def phase_tutorial(device, ray_worst):
         rec["k1"].append(dict(shape=[B, n, n], ms=ms, bound_ms=b,
                               bound_by=by, share=b / ms, cluster=C, lanes=G))
     rec["k1_max_abs_err"] = max(k1_worst)
+    rec["final_stage"] = finals[0][:3]  # for phase 14d; not in the JSON
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 13: {rec['seconds']:.1f} s")
     return rec
+
+
+# --------------------------------------------------------------------- #
+# Phase 14: K1's other forms (csrc/sweep_forms.cu)
+# --------------------------------------------------------------------- #
+
+# (14a) the forms' passes held to the graphed twin: (name, gs_pass
+# keywords, replace); every parallel-in-block form on 48 x 56 (S = 56, so
+# a z-sweep's reverse blocks start with 8 padding lines), two on the
+# other cases
+OPERATOR_FORMS = (("fd_only min", dict(use_ali=False), False),
+                  ("fd_only replace", dict(use_ali=False), True),
+                  ("fd_free replace", dict(use_fd=False), True))
+BLOCK_FORMS = tuple(
+    (f"block B={b} J={j} {'ali' if ali else 'fd'} "
+     f"{'replace' if rep else 'min'}",
+     dict(block=b, inner=j, inner_use_ali=ali), rep)
+    for b in (4, 8) for j in (1, 2, 4) for ali in (False, True)
+    for rep in (False, True))
+SOME_BLOCK_FORMS = tuple(f for f in BLOCK_FORMS if f[0] in (
+    "block B=4 J=2 fd min", "block B=8 J=4 ali replace"))
+FORM_CASES = {"48x56": OPERATOR_FORMS + BLOCK_FORMS,
+              "37x131": OPERATOR_FORMS + SOME_BLOCK_FORMS,
+              "patches 109x109": OPERATOR_FORMS + SOME_BLOCK_FORMS,
+              "tie-heavy isotropic 64x64": OPERATOR_FORMS + SOME_BLOCK_FORMS}
+# (14a) the two-loop fixpoints on 48 x 56, float64
+FORM_FIXPOINTS = {"phase1_use_ali=False": dict(phase1_use_ali=False),
+                  "polish_use_fd=False": dict(polish_use_fd=False,
+                                              max_polish_passes=6),
+                  "inner=2, block=4": dict(inner=2, block=4)}
+# (14b) the weld slice in each form (the weld's budgets, SOLVE_KW, with
+# these fields replaced), and the form kernel each must launch
+FORM_SLICES = {
+    "final_polish_fd=False": (dict(final_polish_fd=False), "k1_fd_free"),
+    "use_ali=False": (dict(use_ali=False), "k1_fd_only"),
+    "phase1_use_ali=False": (dict(phase1_use_ali=False), "k1_fd_only"),
+    "sweep_inner=4, patch_inner=4": (dict(sweep_inner=4, patch_inner=4,
+                                          sweep_block=8, patch_block=4),
+                                     "k1_block_fd"),
+    "multigrid=True": (dict(multigrid=True), None),
+}
+
+
+def form_kwargs(form):
+    """gs_pass keywords of a ``sweep.Form``."""
+    return dict(block=form.block, inner=form.inner,
+                inner_use_ali=form.use_ali, use_ali=form.use_ali,
+                use_fd=form.use_fd)
+
+
+def check_form_pass(model, tt, fixed, kw, replace, what):
+    """One pass of a form: the form kernel at AUTO's launch shapes against
+    the graphed twin, max abs 0 (delta and scale equal too).  Returns the
+    largest difference."""
+    from alifmm_tpu_torch.ops import cuda_sweep, sweep
+
+    want = sweep.gs_pass(tt, model, fixed, replace=replace, graphed=True,
+                         **kw)
+    dp, sp = sweep.delta_scale(want, tt)
+    packed = cuda_sweep.pack_model(model)
+    B = tt.shape[0]
+    form = sweep.pass_form(**kw)
+    worst = 0.0
+    for cluster, lanes in AUTO:
+        C, G = cuda_sweep.launch_config(B, *tt.shape[1:], cuda_sweep._sm_count(
+            tt.device), cluster, lanes)
+        got, dk, sk = cuda_sweep._launch(tt, fixed, packed,
+                                         np.full(B, replace),
+                                         np.ones(B, bool), C, G, form=form)
+        e = float((got - want).abs().max())
+        same = torch.equal(dk, dp) and torch.equal(sk, sp)
+        log(f"  {what} C={C} G={G}: max abs {e:.3e}, delta and scale equal "
+            f"{same}")
+        check(e == 0.0 and same, f"{what} C={C} G={G}: the form kernel "
+              f"differs from its twin")
+        worst = max(worst, e)
+    return worst
+
+
+def twin_run(model, fixed, graphed=True):
+    """The ``split_pass`` runner on the twin (graphed on the card)."""
+    from alifmm_tpu_torch.ops import sweep
+
+    def run(t, rep, act, form):
+        return sweep.plain_pass(t, model, fixed, rep, act, graphed=graphed,
+                                form=form)
+    return run
+
+
+def phase_forms_vs_plain(device, dtypes):
+    """(14a) K1's forms against the graphed twin, max abs 0, in ``dtypes``:
+    the operator forms (FD-only min and replace, FD-free replace) and the
+    parallel-in-block sweeps (every B in 4, 8, J in 1, 2, 4, inner
+    operator and accumulation on 48 x 56, two on the others) on
+    ``FORM_CASES``; a pass whose sources are split between phase 1 and
+    the polish (per-source forms); with float64 the two-loop fixpoints on
+    48 x 56 with equal pass counts.  Phase 3's process runs float64, the
+    main process float32 while it waits for it."""
+    from alifmm_tpu_torch.ops import cuda_sweep, sweep
+
+    t_phase = time.perf_counter()
+    worst = 0.0
+    for dtype in dtypes:
+        dname = str(dtype).replace("torch.", "")
+        for case, forms in FORM_CASES.items():
+            model, tt, fixed = PASS_CASES[case][0](dtype, device)
+            packed = cuda_sweep.pack_model(model)
+            B = tt.shape[0]
+            mid = tt
+            for _ in range(2):  # K1's default form, equal to its twin
+                mid, _, _ = cuda_sweep._launch(mid, fixed, packed,
+                                               np.zeros(B, bool),
+                                               np.ones(B, bool))
+            t0 = time.perf_counter()
+            for name, kw, rep in forms:
+                worst = max(worst, check_form_pass(
+                    model, mid if rep else tt, fixed, kw, rep,
+                    f"(14a) {case} {name} {dname}"))
+            log(f"  (14a) {case} {dname}: {len(forms)} forms in "
+                f"{time.perf_counter() - t0:.1f} s")
+        # one pass holding sources of both phases, each with its form
+        model, tt, fixed = PASS_CASES["48x56"][0](dtype, device)
+        rep, act = np.array([False, True, False]), np.ones(3, bool)
+        for kw in (dict(phase1_use_ali=False), dict(inner=2, block=4)):
+            forms = sweep.phase_forms(**kw)
+            want = sweep.split_pass(tt, rep, act, forms,
+                                    twin_run(model, fixed))
+            got = sweep.split_pass(
+                tt, rep, act, forms,
+                lambda t, r, a, f: cuda_sweep.sweep_pass(t, model, fixed, r,
+                                                         a, form=f))
+            e = float((got[0] - want[0]).abs().max())
+            log(f"  (14a) 48x56 {dname}, sources 0 and 2 in phase 1, 1 in "
+                f"the polish, {kw}: max abs {e:.3e}")
+            check(e == 0.0 and np.array_equal(got[1], want[1]),
+                  f"(14a) a pass of mixed phases ({kw}) differs")
+            worst = max(worst, e)
+    fixpoints = {}
+    if torch.float64 not in dtypes:
+        secs = time.perf_counter() - t_phase
+        log(f"  phase 14a ({dtypes}): {secs:.1f} s, max abs {worst:.3e}")
+        return dict(max_abs_err=worst, fixpoints=fixpoints, seconds=secs)
+    # the two-loop fixpoints, float64
+    model, tt, fixed = PASS_CASES["48x56"][0](torch.float64, device)
+    budget = dict(rel_tol=1e-3, max_passes=6, polish_passes=2)
+    for name, kw in FORM_FIXPOINTS.items():
+        got, info_k = cuda_sweep.solve_fixpoint(tt, model, fixed, **budget,
+                                                **kw)
+        forms = sweep.phase_forms(kw.get("block", 1), kw.get("inner", 0),
+                                  True, kw.get("phase1_use_ali"),
+                                  kw.get("polish_use_fd", True))
+        run = twin_run(model, fixed)
+        want, info_p = sweep.two_phase(
+            tt, lambda t, r, a: sweep.split_pass(t, r, a, forms, run), False,
+            budget["rel_tol"], budget["max_passes"], 2,
+            budget["polish_passes"], kw.get("max_polish_passes"),
+            sweep.two_loop(kw.get("inner", 0), True,
+                           kw.get("phase1_use_ali"),
+                           kw.get("polish_use_fd", True)))
+        e = float((got - want).abs().max())
+        log(f"  (14a) fixpoint {name} float64: max abs {e:.3e}; passes "
+            f"kernel {info_k} twin {info_p}")
+        check(e == 0.0 and info_k == info_p,
+              f"(14a) the {name} fixpoint differs from its twin's")
+        fixpoints[name] = dict(passes=info_k.passes,
+                               converged=info_k.converged)
+        worst = max(worst, e)
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 14a ({dtypes}): {secs:.1f} s, max abs {worst:.3e}")
+    return dict(max_abs_err=worst, fixpoints=fixpoints, seconds=secs)
+
+
+def rel_dev(got, want):
+    """(max, mean) relative deviation of ``got`` from ``want``."""
+    r = ((got.double() - want.double()).abs()
+         / want.double().abs().clamp_min(1e-30))
+    return float(r.max()), float(r.mean())
+
+
+def form_slice(inputs, cfg, what, ttfs0, times0, form_key):
+    """A weld slice of ``cfg``: a warm-up run, then a timed one with every
+    count set to 0 just before it: finite fields, every ray time finite
+    and positive and every ray arrived or, as phase 11c allows, finished
+    where its next plane left the grid within two steps of its receiver
+    (``qsv_search_ends``), one K2 and one K3, no plain pass or step, and
+    the form kernel ``form_key`` launched.  Returns its record and ray
+    times."""
+    import warnings
+
+    from alifmm_tpu_torch.ops.stencils import INF
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run_slice(inputs, cfg=cfg)
+    warned = [str(w.message) for w in caught]
+    stages = []
+
+    def rec(stage, total, name, seconds):
+        stages.append((name, seconds))
+
+    reset_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ttfs, info, out, (t_solve, t_rays, wall) = run_slice(inputs, rec, cfg)
+    counts = read_counts()
+    bx, by, lengths, times, reason = out
+    k1 = {k: v for k, v in counts.items()
+          if k == "sweep_pass" or k.startswith("k1_")}
+    f_dev, r_dev = rel_dev(ttfs, ttfs0), rel_dev(times, times0)
+    log(f"  (14b) {what}: {wall:.4f} s (solve {t_solve:.4f} s, rays "
+        f"{t_rays:.4f} s; stages " + ", ".join(f"{n} {t:.4f} s"
+                                               for n, t in stages)
+        + f"); final passes {info.passes} converged {info.converged}; K1 "
+        f"launches by form {k1}; fields against the default max / mean rel "
+        f"{f_dev[0]:.4e} / {f_dev[1]:.4e}, ray times {r_dev[0]:.4e} / "
+        f"{r_dev[1]:.4e}")
+    check(bool(torch.isfinite(ttfs).all()) and bool((ttfs < INF * 0.5).all()),
+          f"(14b) {what}: fields not finite everywhere")
+    ends = qsv_search_ends(out, inputs[4], f"(14b) {what}")
+    check(counts["march"] == 1 and counts["relax_times"] == 1
+          and counts["plain_passes"] == 0 and counts["plain_steps"] == 0,
+          f"(14b) {what}: launches {counts}")
+    check(sum(k1.values()) > 0 and (form_key is None or counts[form_key] > 0),
+          f"(14b) {what}: the form kernel {form_key} was not launched")
+    return dict(wall=wall, solve=t_solve, rays=t_rays, stages=stages,
+                passes=info.passes, converged=info.converged, k1=k1,
+                fields_vs_default=f_dev, times_vs_default=r_dev,
+                ray_ends=ends, warnings=warned), times
+
+
+def phase_forms_weld(inputs, ttfs0, times0, device):
+    """(14b) the weld slice at full width (31 fields of 424 x 500, 961
+    rays, float32, phase 6's budgets and knobs) in each form of
+    ``FORM_SLICES`` (``form_slice``; the multigrid start must warn), then
+    ``ALI_FMM(solve_opts=final_polish_fd=False)`` timed, its times equal
+    to the direct path's."""
+    import warnings
+
+    import alifmm_tpu_torch
+    from alifmm_tpu_torch import solver, weld_data
+
+    out = {}
+    direct = {}
+    for what, (kw, key) in FORM_SLICES.items():
+        cfg = solver.SolveConfig(**{**SOLVE_KW, **kw})
+        out[what], direct[what] = form_slice(inputs, cfg, what, ttfs0,
+                                             times0, key)
+        if cfg.multigrid:
+            check(any("multigrid is experimental" in w
+                      for w in out[what]["warnings"]),
+                  "(14b) the multigrid start did not warn")
+    alifmm_tpu_torch.tqdm_disable = True
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    fm = alifmm_tpu_torch.ALI_FMM(
+        veln, velpn, vel_map, sx, sy, stif_den=stif, dnx=dnx,
+        ray_opts=RAY_OPTS, solve_opts=dict(SOLVE_KW, final_polish_fd=False))
+
+    def call():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            t0 = time.perf_counter()
+            tmat = fm.find_all_TTF_rays_parallel(
+                veln, velpn, vel_map, stif_den=stif, trans_pairs=pairs,
+                n_threads=8)
+            torch.cuda.synchronize()
+            return tmat, time.perf_counter() - t0
+
+    call()
+    reset_counts()
+    tmat, wall = call()
+    counts = read_counts()
+    pi, pj = np.nonzero(pairs == 1)
+    got = tmat[pi, pj]
+    want = direct["final_polish_fd=False"].double().cpu().numpy()
+    rel = float((np.abs(got - want) / want).max())
+    log(f"  (14b) ALI_FMM(solve_opts=final_polish_fd=False): warm call "
+        f"{wall:.4f} s; launches {counts}; times against the direct path's "
+        f"max rel {rel:.3e}")
+    check(counts["k1_fd_free"] > 0 and counts["march"] == 1
+          and counts["relax_times"] == 1 and counts["plain_passes"] == 0,
+          f"(14b) the facade's FD-free polish run: launches {counts}")
+    check(rel <= 1e-6, "(14b) the facade's times differ from the direct "
+          "path's")
+    out["facade final_polish_fd=False"] = dict(wall=wall, counts=counts,
+                                               vs_direct_max_rel=rel)
+    return out
+
+
+def phase_forms_qsv(inputs, qsv_ttfs, qp_times, device):
+    """(14c) the qSV weld under ``for_mode("qsv", phase1_use_ali=False)``
+    (an FD envelope, then the ALI polish), directly: a warm-up run and a
+    timed one; its passes and its fields' deviation from 11c's.  Every ray
+    time is finite and positive and within 11c's bounds of the qP time.
+    11c's arrival rules (the weld knobs' search arrives or ends at the
+    grid's edge near its receiver; auto lands every ray one of its tracers
+    lands) do not hold on this field: the search truncates ray 143 far
+    from its receiver, and auto takes the search's truncated rays where
+    its certificate rejects the descent's (PERF.md, PR 12).  They are
+    recorded, not held, and the rays that did not arrive are saved with
+    their fields to QSV_FD_RAYS_FILE for tests/qsv_ray_records.py, which
+    traces them with the JAX package."""
+    from alifmm_tpu_torch import solver
+    from alifmm_tpu_torch.ops.stencils import INF
+
+    model = qsv_weld_model(torch.float32, device)
+    q_inputs = (model,) + tuple(inputs[1:])
+    cfg = solver.SolveConfig.for_mode("qsv", phase1_use_ali=False)
+    run_slice(q_inputs, cfg=cfg)
+    reset_counts()
+    ttfs, info, out, (t_solve, t_rays, wall) = run_slice(q_inputs, cfg=cfg)
+    counts = read_counts()
+    what = "(14c) qSV weld, phase1_use_ali=False"
+    f_dev = rel_dev(ttfs, qsv_ttfs)
+    log(f"  {what}: {wall:.4f} s (solve {t_solve:.4f} s, rays {t_rays:.4f} "
+        f"s); final passes {info.passes} converged {info.converged}; "
+        f"launches {counts}; fields against 11c's max / mean rel "
+        f"{f_dev[0]:.4e} / {f_dev[1]:.4e}")
+    check(counts["k1_fd_only"] > 0, f"{what}: no FD-only launch")
+    check_tracer_counts(counts, "search", 0, what)
+    check(bool(torch.isfinite(ttfs).all()) and bool((ttfs < INF * 0.5).all()),
+          f"{what}: fields not finite everywhere")
+    search = qsv_search_ends(out, q_inputs[4], what, edge_rule=False)
+    auto_times, auto = qsv_auto_arrival(model, ttfs, q_inputs,
+                                        f"{what}, auto", lands=False)
+    save_not_arrived(ttfs, q_inputs, out, search["early"], auto_times,
+                     auto["not_arrived"], QSV_FD_RAYS_FILE)
+    return dict(wall=wall, solve=t_solve, rays=t_rays, passes=info.passes,
+                converged=info.converged, counts=counts,
+                fields_vs_11c=f_dev, search=search, auto=auto,
+                over_qp=check_over_qp(out[3], qp_times, what))
+
+
+def time_form(model, tt, fixed, packed, form, replace, what):
+    """A form's pass timed warm (CUDA events) beside its bound, the timed
+    pass equal to the graphed twin's (timed on the host clock)."""
+    from alifmm_tpu_torch.ops import cuda_sweep, sweep
+
+    ms, got = time_k1(tt, fixed, packed, form=form, replace=replace)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sweep.gs_pass(tt, model, fixed, replace=replace, graphed=True,
+                         **form_kwargs(form))
+    torch.cuda.synchronize()
+    ms_p = (time.perf_counter() - t0) * 1e3
+    e = float((got - want).abs().max())
+    bound, by = bound_ms(tt, fixed, packed, form)
+    B, Z, X = tt.shape
+    C, G = cuda_sweep.launch_config(B, Z, X, cuda_sweep._sm_count(tt.device))
+    log(f"  (14d) {what} at {B} x {Z} x {X}: {ms:.4f} ms per pass at C={C} "
+        f"G={G}; bound {bound:.4f} ms ({by}), share {bound / ms:.4f}; "
+        f"graphed twin {ms_p:.1f} ms, max abs {e:.3e}")
+    check(e == 0.0, f"(14d) {what}: the timed pass differs from its twin")
+    return dict(shape=[B, Z, X], ms=ms, plain_ms=ms_p, bound_ms=bound,
+                bound_by=by, share=bound / ms, max_abs_err=e, cluster=C,
+                lanes=G)
+
+
+def phase_forms_timing(inputs, tutorial_final):
+    """(14d) each form timed warm beside its bound and K1's default pass:
+    at the weld's final stage (31 x 424 x 500, float32) FD-only, FD-free
+    (a replace pass on K1's min pass) and the parallel-in-block FD sweeps
+    with B = 8 and J = 2, 4; at the tutorial's latency-bound 3 x 201 x
+    201 (the gradient model's final stage) the parallel sweeps with J = 2
+    and 4 beside the strict order."""
+    from alifmm_tpu_torch.ops import cuda_sweep, sweep
+
+    out = {}
+    _, model, tt0, fixed = stage_inputs(inputs)[-1]
+    packed = cuda_sweep.pack_model(model)
+    ms0, mid = time_k1(tt0, fixed, packed)
+    out["default 31x424x500"] = dict(ms=ms0)
+    log(f"  (14d) K1's default form at 31 x 424 x 500: {ms0:.4f} ms a pass")
+    for what, form, rep, start in (
+            ("fd_only min", sweep.Form(False, True), False, tt0),
+            ("fd_free replace", sweep.Form(True, False), True, mid),
+            ("block B=8 J=2 fd min", sweep.Form(False, True, 8, 2), False,
+             tt0),
+            ("block B=8 J=4 fd min", sweep.Form(False, True, 8, 4), False,
+             tt0)):
+        out[f"{what} 31x424x500"] = time_form(model, start, fixed, packed,
+                                              form, rep, what)
+    m, tt, fx = tutorial_final
+    packed = cuda_sweep.pack_model(m)
+    ms0, _ = time_k1(tt, fx, packed)
+    out["default 3x201x201"] = dict(ms=ms0)
+    log(f"  (14d) K1's default form at 3 x 201 x 201: {ms0:.4f} ms a pass")
+    for j in (2, 4):
+        what = f"block B=8 J={j} fd min"
+        out[f"{what} 3x201x201"] = time_form(
+            m, tt, fx, packed, sweep.Form(False, True, 8, j), False, what)
+    return out
 
 
 SCORER_NAMES = {0: "simpson3", 1: "simpson5", 2: "walk", 3: "exact"}
@@ -4162,7 +4615,8 @@ def build_kernels(after_sweep=None):
     still compiling.  Returns ptxas' registers and spills by kernel."""
     from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep
 
-    builds = (cuda_sweep.build, cuda_rays.build, cuda_rays.build_descent)
+    builds = (cuda_sweep.build, cuda_sweep.build_forms, cuda_rays.build,
+              cuda_rays.build_descent)
     t0 = time.perf_counter()
 
     def timed(build):
@@ -4174,15 +4628,18 @@ def build_kernels(after_sweep=None):
         jobs = [pool.submit(timed, b) for b in builds]
         if after_sweep is not None:
             jobs[0].result()
+            jobs[1].result()
             after_sweep()
         secs = [job.result() for job in jobs]
-    log(f"[2] K1 and K5 (sweep.cu), K2 and K3 (rays.cu) and K4 (descent.cu) built "
+    log(f"[2] K1 and K5 (sweep.cu), K1's other forms (sweep_forms.cu), K2 "
+        f"and K3 (rays.cu) and K4 (descent.cu) built "
         f"in {time.perf_counter() - t0:.2f} s, at once (each: "
         + ", ".join(f"{n} {t:.2f} s" for n, t in
-                    zip(("sweep.cu", "rays.cu", "descent.cu"), secs)) + ")")
+                    zip(("sweep.cu", "sweep_forms.cu", "rays.cu",
+                         "descent.cu"), secs)) + ")")
     regs = {}
-    for report in (cuda_sweep.BUILD_LOG, cuda_rays.BUILD_LOG,
-                   cuda_rays.DESCENT_BUILD_LOG):
+    for report in (cuda_sweep.BUILD_LOG, cuda_sweep.FORMS_BUILD_LOG,
+                   cuda_rays.BUILD_LOG, cuda_rays.DESCENT_BUILD_LOG):
         regs.update(ptxas_summary(report))
     for name, (n, spill) in regs.items():
         log(f"    ptxas: {name[:120]}: {n} registers, {spill} bytes of "
@@ -4237,9 +4694,9 @@ def join_k1_twin(job):
         f"s for it), exit code {rc}; its log:")
     for ln in lines:
         print(ln, end="", flush=True)
-    check(rc == 0, f"phase 3 (K1 against its plain twin) failed: exit code "
-          f"{rc}")
-    return json.loads(lines[-1])["max_abs_err"]
+    check(rc == 0, f"phase 3 (K1 against its plain twin) or 14a (its forms) "
+          f"failed: exit code {rc}")
+    return json.loads(lines[-1])
 
 
 def stop_k1_twin(job):
@@ -4250,9 +4707,9 @@ def stop_k1_twin(job):
 
 
 def main_k1_twin():
-    """``python3 chip_smoke.py --k1-twin``: phase 3 alone, in inference
-    mode, with ``sweep.cu`` as built by the caller; its last line is
-    ``{"max_abs_err": x}``."""
+    """``python3 chip_smoke.py --k1-twin``: phases 3 and 14a alone, in
+    inference mode, with ``sweep.cu`` and ``sweep_forms.cu`` as built by
+    the caller; its last line is ``{"max_abs_err": x, "forms": {...}}``."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4261,10 +4718,14 @@ def main_k1_twin():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda_sweep.build()
+    cuda_sweep.build_forms()
+    device = torch.device("cuda", 0)
     log("[3] K1 against its plain twin")
     with torch.inference_mode():
-        worst = phase_kernel_vs_plain(torch.device("cuda", 0))
-    print(json.dumps({"max_abs_err": worst}), flush=True)
+        worst = phase_kernel_vs_plain(device)
+        log("[14a] K1's other forms against the graphed twin, float64")
+        forms = phase_forms_vs_plain(device, (torch.float64,))
+    print(json.dumps({"max_abs_err": worst, "forms": forms}), flush=True)
     return 0
 
 
@@ -4298,8 +4759,17 @@ def main():
         qsv_k1_worst = phase_qsv_kernel(device)
         log("[12a] K5 (the slab sweep) against its twin")
         halo_worst = phase_halo_kernel(device)
-        log("[3] K1 against its plain twin, in the second process")
-        worst = join_k1_twin(job)
+        log("[14a] K1's other forms against the graphed twin, float32 "
+            "(float64 in the second process)")
+        with torch.inference_mode():
+            forms_f32 = phase_forms_vs_plain(device, (torch.float32,))
+        log("[3] K1 against its plain twin, and [14a] its other forms in "
+            "float64, in the second process")
+        twin = join_k1_twin(job)
+        worst, forms_14a = twin["max_abs_err"], twin["forms"]
+        forms_14a["max_abs_err"] = max(forms_14a["max_abs_err"],
+                                       forms_f32["max_abs_err"])
+        forms_14a["seconds"] = [forms_14a["seconds"], forms_f32["seconds"]]
     finally:
         stop_k1_twin(job)
     log("[5] analytic checks: the isotropic 424 x 500 field with the "
@@ -4386,6 +4856,18 @@ def main():
     log("[13] the tutorial notebook's workload through ALI_FMM (201 x 201, "
         "three transducers, rays at subgrid_size 9, float32): 13a-13e")
     tutorial = phase_tutorial(device, ray_worst)
+    tutorial_final = tutorial.pop("final_stage")
+    t14 = time.perf_counter()
+    log("[14b] the weld slice in each of K1's other forms, then through "
+        "ALI_FMM with the FD-free polish")
+    forms_weld = phase_forms_weld(inputs, ttfs, coarse_times, device)
+    log("[14c] the qSV weld slice with an FD envelope "
+        "(for_mode('qsv', phase1_use_ali=False))")
+    forms_qsv = phase_forms_qsv(inputs, qsv.pop("ttfs"), coarse_times,
+                                device)
+    log("[14d] K1's forms timed beside their bounds and K1's default pass")
+    forms_timed = phase_forms_timing(inputs, tutorial_final)
+    log(f"  phase 14b-14d: {time.perf_counter() - t14:.1f} s")
 
     check("jax" not in sys.modules, "jax was imported")
     kernels = [{
@@ -4424,6 +4906,33 @@ def main():
                               for k, v in tutorial["calls"].items()},
         "tutorial": tutorial,
     }]
+    fd_free = forms_timed["fd_free replace 31x424x500"]
+    kernels.append({
+        "name": "K1 sweep pass, other forms",
+        "route": "cuda",
+        "source": "alifmm_tpu_torch/csrc/sweep_forms.cu",
+        "replaces": "alifmm_tpu/ops/pallas_sweep.py:124",
+        "also_replaces": "alifmm_tpu/ops/sweep.py:322 (gs_pass with "
+                         "use_ali=False, use_fd=False or inner > 0)",
+        "launches": sum(v for rec in forms_weld.values()
+                        for k, v in rec.get("k1", {}).items()
+                        if k.startswith("k1_")),
+        "max_abs_err": max(forms_14a["max_abs_err"],
+                           max(v.get("max_abs_err", 0.0)
+                               for v in forms_timed.values())),
+        **{k: fd_free[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by")},
+        "library_ms": None,
+        "timed": "the FD-free replace pass at 31 x 424 x 500",
+        "forms_timed": forms_timed,
+        "weld_slices": forms_weld,
+        "qsv_weld": forms_qsv,
+        "fixpoints": forms_14a["fixpoints"],
+        "registers": {k: v[0] for k, v in regs.items()
+                      if "sweep_forms_kernel" in k},
+        "spill_bytes": {k: v[1] for k, v in regs.items()
+                        if "sweep_forms_kernel" in k},
+    })
     defaults = weld["facade defaults"]
     kernels.append(ray_kernel_entry(
         "K2 ray march", "alifmm_tpu/rays.py:728", counts["march"],

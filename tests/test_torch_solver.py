@@ -92,8 +92,10 @@ def test_unported_paths_raise(problem):
     the fine path was ported, against the JAX package's, with the uncut
     fine schedule (patches of 127 x 127 at 9x and 97 x 97 at 3x, seed sign
     +1) on a 13 x 11 crop of the problem with stiffness and table cells,
-    one pass a patch stage; the parallel-in-block sweeps (patch_inner)
-    still raise."""
+    one pass a patch stage; and the first patch stage with the
+    parallel-in-block sweeps (patch_inner = 2 over blocks of
+    patch_block = 2 lines), which raised NotImplementedError before they
+    were ported, against the JAX package's."""
     jm, tm, scx, scz = problem
     rows, cols = slice(10, 23), slice(14, 25)
     arrays = [np.asarray(getattr(jm, n))[rows, cols]
@@ -116,7 +118,11 @@ def test_unported_paths_raise(problem):
     _assert_fields(got.numpy(), np.asarray(want))
     assert (info.passes, info.converged) == (int(winfo.passes),
                                              bool(winfo.converged))
-    with pytest.raises(NotImplementedError):
-        tsolver._stage_first(tm, torch.from_numpy(scx), torch.from_numpy(scz),
-                             1, 9, SEED_SIDE, -1.0,
-                             tsolver.SolveConfig(patch_inner=2))
+    inner = dict(BUDGET, patch_inner=2, patch_block=2)
+    want, _, _ = jsolver._stage_first(
+        jm, jnp.asarray(scx), jnp.asarray(scz), 1, 9, SEED_SIDE, -1.0,
+        jsolver.SolveConfig(**inner), use_pallas=False)
+    got, _, _, _ = tsolver._stage_first(
+        tm, torch.from_numpy(scx), torch.from_numpy(scz), 1, 9, SEED_SIDE,
+        -1.0, tsolver.SolveConfig(**inner))
+    _assert_fields(got.numpy(), np.asarray(want))

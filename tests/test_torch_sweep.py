@@ -179,13 +179,23 @@ def test_isotropic_replace_pass_matches_jax():
     assert np.any(want2 != want)
 
 
-def test_unported_forms_raise(f64):
+@pytest.mark.parametrize("kw", [dict(inner=2), dict(phase1_use_ali=False),
+                                dict(polish_use_fd=False),
+                                dict(use_ali=False)])
+def test_unported_forms_raise(f64, kw):
+    """The fixpoint forms that raised NotImplementedError before they were
+    ported now match the JAX package's, with equal SolveInfo: the
+    two-loop form (inner > 0 with block 1, a differing phase-1 operator,
+    the FD-free polish) and the FD-only operator in both phases."""
     jm, tm, tt0, fixed = f64
     t, f = torch.from_numpy(tt0), torch.from_numpy(fixed)
-    for kw in (dict(inner=2), dict(phase1_use_ali=False),
-               dict(polish_use_fd=False), dict(use_ali=False)):
-        with pytest.raises(NotImplementedError):
-            tsweep.solve_fixpoint(t, tm, f, **kw)
+    budget = dict(rel_tol=1e-4, max_passes=4, polish_passes=2)
+    want, winfo = jsweep.solve_fixpoint(jnp.asarray(tt0), jm,
+                                        jnp.asarray(fixed), **budget, **kw)
+    got, info = tsweep.solve_fixpoint(t, tm, f, **budget, **kw)
+    _assert_close(got.numpy(), np.asarray(want), fixed, RTOL_F64)
+    assert info.passes == int(winfo.passes)
+    assert info.converged == bool(winfo.converged)
 
 
 def test_graphed_pass_needs_cuda_fields(f64):
