@@ -34,6 +34,7 @@ here is compiled, so there is none.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -127,16 +128,33 @@ def _base_stages(model, subgrid_size, cfg, stages, seed_side):
     return base, stages, seed_side, solverlib._FINE_SEED_SIGN
 
 
-def _patch_stages(base, scx, scz, stages, seed_side, seed_sign, cfg):
-    """The telescoped patch stages and the injection into the final grid:
-    (tt, fixed), (B, Z, X)."""
+def _note(progress, device, stage, total, name, t0):
+    """``progress(stage=, total=, name=, seconds=)`` after a stage, with
+    ``device`` synchronised first, as ``solver.solve_ttf`` reports."""
+    if progress is None:
+        return
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    progress(stage=stage, total=total, name=name,
+             seconds=time.perf_counter() - t0)
+
+
+def _patch_stages(base, scx, scz, stages, seed_side, seed_sign, cfg,
+                  progress=None):
+    """The telescoped patch stages: the last stage's (tt, bz, bx);
+    ``progress`` is told of each."""
+    total = len(stages) + 1
+    t0 = time.perf_counter()
     (h0, f0) = stages[0]
     tt, bz, bx, _ = solverlib._stage_first(base, scx, scz, h0, f0, seed_side,
                                            float(seed_sign), cfg)
-    for (h, f) in stages[1:]:
+    _note(progress, base.device, 1, total, f"patch {f0}x (half={h0})", t0)
+    for k, (h, f) in enumerate(stages[1:], start=2):
+        t0 = time.perf_counter()
         tt, bz, bx, _ = solverlib._stage_next(base, scx, scz, tt, bz, bx, h,
                                               f, cfg)
-    return solverlib._final_inputs(base, tt, bz, bx)
+        _note(progress, base.device, k, total, f"patch {f}x (half={h})", t0)
+    return tt, bz, bx
 
 
 def solve_ttf_sharded(model: gridlib.Model, scx, scz, mesh: Mesh,
@@ -168,8 +186,8 @@ def solve_ttf_sharded(model: gridlib.Model, scx, scz, mesh: Mesh,
         m = models[dev]
         cx = torch.as_tensor(scx[sl]).to(m.dtype).to(dev)
         cz = torch.as_tensor(scz[sl]).to(m.dtype).to(dev)
-        tt, fixed = _patch_stages(m, cx, cz, stages, seed_side, seed_sign,
-                                  cfg)
+        tt, fixed = solverlib._final_inputs(m, *_patch_stages(
+            m, cx, cz, stages, seed_side, seed_sign, cfg))
         parts.append((tt, fixed, m))
     packs = {dev: cuda_sweep.pack_model(m) for dev, m in models.items()
              if dev.type == "cuda"}
@@ -543,21 +561,25 @@ def solve_ttf_halo(model: gridlib.Model, scx, scz, mesh: Mesh, axis="gz",
                    subgrid_size: int = 1,
                    cfg: solverlib.SolveConfig = solverlib.SolveConfig(),
                    n_inner: int = 1, return_info: bool = False, stages=None,
-                   seed_side=None):
+                   seed_side=None, progress=None):
     """Telescoped travel-time solve with the final stage on the grid split
     over ``mesh`` (``axis``: one mesh axis for z slabs, two for z and x
     blocks).  The patch stages run on the model's device (K1), their
     injection seeds the final grid, whose rows (and columns) are padded to
     a multiple of the blocks with fixed INF points and edge materials, and
-    the residual-driven halo solve finishes it.  Returns (n_src, Z, X)
-    [and the final stage's SolveInfo with ``return_info=True``]."""
+    the residual-driven halo solve finishes it.  ``progress(stage=,
+    total=, name=, seconds=)`` is called after each stage, as
+    ``solver.solve_ttf`` calls it.  Returns (n_src, Z, X) [and the final
+    stage's SolveInfo with ``return_info=True``]."""
     base, stages, seed_side, seed_sign = _base_stages(
         model, int(subgrid_size), cfg, stages, seed_side)
     scx = torch.as_tensor(scx, device=base.device).to(base.dtype)
     scz = torch.as_tensor(scz, device=base.device).to(base.dtype)
     Z, X = base.shape
-    tt0, fixed = _patch_stages(base, scx, scz, stages, seed_side, seed_sign,
-                               cfg)
+    last = _patch_stages(base, scx, scz, stages, seed_side, seed_sign, cfg,
+                         progress)
+    t0 = time.perf_counter()
+    tt0, fixed = solverlib._final_inputs(base, *last)
     axes = (axis,) if isinstance(axis, str) else tuple(axis)
     n_sz = mesh.shape[axes[0]]
     n_sx = mesh.shape[axes[1]] if len(axes) == 2 else 1
@@ -576,7 +598,8 @@ def solve_ttf_halo(model: gridlib.Model, scx, scz, mesh: Mesh, axis="gz",
         rel_tol=budget["rel_tol"], max_outer=cfg.final_max_passes,
         max_polish=max_pol, return_info=return_info,
         z_true=Z if pad_rows else None, x_true=X if pad_cols else None)
-    if return_info:
-        out, info = out
-        return out[..., :Z, :X], info
-    return out[..., :Z, :X]
+    out, info = out if return_info else (out, None)
+    out = out[..., :Z, :X]
+    _note(progress, out.device, len(stages) + 1, len(stages) + 1,
+          "final full-grid", t0)
+    return (out, info) if return_info else out

@@ -220,8 +220,41 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    tutorial's 3 x 201 x 201 (J = 2 and 4), each timed pass equal to its
    twin's.
 
+15. BASELINE's fifth configuration, shear modes on a large grid on the
+   halo path (four z slabs and 2 x 2 blocks of virtual ranks of the one
+   card, ``virtual_mesh``; each solve with every count set to 0 just
+   before it): (15a) the fine weld (s = 9, 31 fields of 3808 x 4492,
+   float32, phase 9's budgets) through ``solve_ttf_halo`` on four z
+   slabs, max abs 0 from phase 9's one-device fields (kept on the host)
+   with equal passes and converged, its peak device memory and K5
+   launches, the 961 nearest-point rays through it equal to phase 9's;
+   one warm solve timed with its stage split and its rounds beside K1's
+   fine pass; K5 at the fine final shape (a slab z-sweep, the refreshed
+   x-sweep of the four slabs in one launch, a round) timed beside its
+   bound; (15b) the qSV weld (phase 11c's model and ``for_mode("qsv")``)
+   on four z slabs and on 2 x 2 blocks, max abs 0 from phase 11c's fields
+   with equal passes and converged; (15c) the qSH weld (the qSV weld's
+   layout with the qSH pair of ``generate_mode_curves(*QSV_STIFF,
+   c66=QSH_C66, mode="qSH")``, ``for_mode("qsh")``): directly, the auto
+   tracer directly and through ``ALI_FMM``, and on four z slabs; converged,
+   every time finite and positive, the rays that do not arrive exactly
+   those the JAX package does not land on the same fields (phase 11c's
+   rule), each qSH time within ``QSH_OVER_QP`` of its qP time, the halo
+   fields max abs 0 from the direct ones; (15d) homogeneous qSH against
+   its closed-form elliptical
+   first arrival, within the JAX package's own error on the same model
+   (``tests/qsh_records.py``) plus a float32 margin.
+
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --halo-fine`` runs the halo path's cases too long
+for the default run's limit (406 s without its builds on an NVIDIA H100
+80GB HBM3 at 700 W): the fine
+weld on 2 x 2 blocks against one device, ``ALI_FMM(ttf_mode="grid",
+grid_mesh=...)`` at s = 9 against the facade without a mesh, and the qSV
+weld at s = 9 on one device and on four z slabs; it prints the card line
+and one JSON object of the results.
 
 ``python3 chip_smoke.py --k4`` runs K4 alone in about a minute (K1 solves
 its fields): on the weld's and the FMC's fields and on the slow band,
@@ -2856,13 +2889,43 @@ ACCURACY_ISO = (2.4e-2, 1.5e-2)
 ACCURACY_QP = (4.5e-2, 1.6e-2)
 
 
-def qsv_tables(stiff=QSV_STIFF):
-    """(group, phase) tables of the qSV models: column 0 the angle, column
-    1 ones (the isotropic parent metal, scaled by vel_map), column 2 the
-    first-arrival qSV pair of ``materials.generate_mode_curves``."""
+# qSH (phase 15): the SH pair of QSV_STIFF with c66 as
+# tests/test_torch_modes.py takes it.  Its phase speed sqrt((cos^2 c66 +
+# sin^2 c44) / rho) is an ellipse, so each qSH ray time against the same
+# pair's qP time lies between 5164 / 3991 = 1.29 and 6329 / 3240 = 1.95
+# (qSH speeds 3240, the parent, to 3991 m/s; qP speeds 5164-6329 m/s)
+QSH_C66 = 98e9
+QSH_OVER_QP = (1.25, 2.0)
+# The qSH weld's rays that do not arrive (15c), those the JAX package does
+# not land on the same fields either (tests/qsv_ray_records.py on the
+# rays 15c saves): with the weld's knobs the plane search stops on 19
+# rays to the last bottom receivers when the time along them starts to
+# rise (reason 2), after 3-29 vertices, at JAX's vertices; with
+# the defaults the descent runs out of its 770 steps on 20 of 21 rays, the
+# search stops on all 21, and auto keeps the search's rays, ray 937 too,
+# which the descent lands
+QSH_SEARCH_EARLY = (789, 790, 819, 820, 821, 850, 851, 852, 872, 881, 882,
+                    883, 912, 913, 914, 934, 943, 944, 945)
+QSH_AUTO_LOST = tuple(sorted(QSH_SEARCH_EARLY + (903, 937)))
+# (15d) homogeneous qSH against its closed-form first arrival: 424 x 500,
+# dnx 2e-4, orientation 0, one interior source (row, column)
+QSH_SHAPE, QSH_DNX, QSH_SOURCE = (424, 500), 2e-4, (212, 250)
+# tests/qsh_records.py: the JAX package's error on that model against the
+# closed-form time in float64 (max, mean; 239 s on 8 cores), and the
+# float32 margin: the float32 record moved them by -7.3e-5 and -6.5e-7
+QSH_JAX_ERROR = (2.356133e-2, 5.526133e-3)
+QSH_F32_MARGIN = (1e-4, 1e-6)
+
+
+def qsv_tables(stiff=QSV_STIFF, mode="qSV"):
+    """(group, phase) tables of the shear models: column 0 the angle,
+    column 1 ones (the isotropic parent metal, scaled by vel_map), column 2
+    the first-arrival pair of ``materials.generate_mode_curves`` for
+    ``mode`` (qSH with c66 = QSH_C66)."""
     from alifmm_tpu_torch import materials
 
-    g, p = materials.generate_mode_curves(*stiff, mode="qSV")
+    c66 = QSH_C66 if mode == "qSH" else None
+    g, p = materials.generate_mode_curves(*stiff, c66=c66, mode=mode)
     ang, one = np.arange(361.0), np.ones(361)
     return np.stack([ang, one, g], 1), np.stack([ang, one, p], 1)
 
@@ -2878,12 +2941,40 @@ def qsv_weld_arrays():
     return veln, np.where(weld, 2, 1), np.where(weld, 1.0, PARENT_SHEAR)
 
 
-def qsv_weld_model(dtype, device):
+def qsv_weld_model(dtype, device, mode="qSV"):
+    """The qSV weld's layout with ``mode``'s pair as column 2."""
     from alifmm_tpu_torch import grid, weld_data
 
-    g, p = qsv_tables()
+    g, p = qsv_tables(mode=mode)
     return grid.make_model(*qsv_weld_arrays(), None, g, p, weld_data.DNX,
                            dtype=dtype, device=device)
+
+
+def qsh_homogeneous_arrays():
+    """(veln, velpn, vel_map) of 15d's model: orientation 0, the qSH column
+    everywhere."""
+    Z, X = QSH_SHAPE
+    return np.zeros((Z, X)), np.full((Z, X), 2), np.ones((Z, X))
+
+
+def qsh_homogeneous_time(stiff=QSV_STIFF):
+    """The closed-form qSH first arrival on 15d's model from QSH_SOURCE: t
+    = sqrt((x / v0)^2 + (z / v90)^2), v0 = sqrt(c66 / rho) along x (the
+    tables' angle 0) and v90 = sqrt(c44 / rho) along z."""
+    c44, rho = stiff[3], stiff[4]
+    v0, v90 = np.sqrt(QSH_C66 / rho), np.sqrt(c44 / rho)
+    Z, X = QSH_SHAPE
+    zz, xx = np.meshgrid(np.arange(Z), np.arange(X), indexing="ij")
+    sz, sx = QSH_SOURCE
+    return np.hypot((xx - sx) * QSH_DNX / v0, (zz - sz) * QSH_DNX / v90)
+
+
+def qsh_errors(field, want):
+    """(max, mean) relative error of a field against the closed-form time,
+    over every point but the source."""
+    mask = want > 0
+    rel = np.abs(np.asarray(field, np.float64) - want)[mask] / want[mask]
+    return float(rel.max()), float(rel.mean())
 
 
 def qsv_random_model(Z, X, dtype, device, seed=0):
@@ -3127,14 +3218,16 @@ QSV_RAYS_FILE = os.path.join("smoke_out", "qsv_rays_not_arrived.npz")
 # (14c) the same for the qSV weld with an FD envelope
 QSV_FD_RAYS_FILE = os.path.join("smoke_out",
                                 "qsv_fd_envelope_rays_not_arrived.npz")
+# (15c) the same for the qSH weld
+QSH_RAYS_FILE = os.path.join("smoke_out", "qsh_rays_not_arrived.npz")
 
 
 def save_not_arrived(ttfs, q_inputs, out, early, auto_times, lost,
-                     path=QSV_RAYS_FILE):
-    """Write the qSV rays that did not arrive (the plane search's ``early``
-    rays with the weld's knobs, auto's ``lost`` ones) with their receiver
-    fields to ``path``, for tests/qsv_ray_records.py, which traces them
-    with the JAX package."""
+                     path=QSV_RAYS_FILE, mode="qSV"):
+    """Write the shear rays that did not arrive (the plane search's
+    ``early`` rays with the weld's knobs, auto's ``lost`` ones) with their
+    receiver fields and the table ``mode`` to ``path``, for
+    tests/qsv_ray_records.py, which traces them with the JAX package."""
     tidx, src, rec = q_inputs[5], q_inputs[3], q_inputs[4]
     s_rays = np.array([r["ray"] for r in early], np.int64)
     a_rays = np.array([r["ray"] for r in lost], np.int64)
@@ -3149,7 +3242,7 @@ def save_not_arrived(ttfs, q_inputs, out, early, auto_times, lost,
 
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(
-        path, rays=both, tidx=ti, field_ids=ids,
+        path, rays=both, tidx=ti, field_ids=ids, mode=mode,
         fields=host(ttfs, ids), src=host(src, both), rec=host(rec, both),
         search_rays=s_rays, search_len=host(out[2], s_rays),
         search_reason=host(out[4], s_rays), search_time=host(out[3], s_rays),
@@ -3157,15 +3250,16 @@ def save_not_arrived(ttfs, q_inputs, out, early, auto_times, lost,
     log(f"  the rays that did not arrive and their fields: {path}")
 
 
-def check_over_qp(times, qp_times, what):
-    """Every qSV ray time within QSV_OVER_QP of the same pair's qP time."""
+def check_over_qp(times, qp_times, what, bounds=QSV_OVER_QP, mode="qSV"):
+    """Every shear ray time within ``bounds`` of the same pair's qP time
+    (QSV_OVER_QP for qSV, QSH_OVER_QP for qSH)."""
     ratio = (torch.as_tensor(times).double().cpu()
              / torch.as_tensor(qp_times).double().cpu())
     lo, hi = float(ratio.min()), float(ratio.max())
-    log(f"  {what}: qSV over qP ray time min {lo:.4f} median "
-        f"{float(ratio.median()):.4f} max {hi:.4f} (bounds {QSV_OVER_QP})")
-    check(QSV_OVER_QP[0] <= lo and hi <= QSV_OVER_QP[1],
-          f"{what}: qSV ray times outside {QSV_OVER_QP} of the qP times")
+    log(f"  {what}: {mode} over qP ray time min {lo:.4f} median "
+        f"{float(ratio.median()):.4f} max {hi:.4f} (bounds {bounds})")
+    check(bounds[0] <= lo and hi <= bounds[1],
+          f"{what}: {mode} ray times outside {bounds} of the qP times")
     return dict(min=lo, max=hi, median=float(ratio.median()))
 
 
@@ -4577,6 +4671,373 @@ def phase_forms_timing(inputs, tutorial_final):
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 15: BASELINE's fifth configuration (qSV/qSH shear modes on a large
+# grid, sharded with halo exchange): the fine weld and the shear welds on
+# the halo path, and qSH solves
+# --------------------------------------------------------------------- #
+
+def halo_solve(model, inputs, kind, device, cfg, subgrid_size=1,
+               progress=None):
+    """solve_ttf_halo of ``inputs``' sources on ``model`` over
+    ``virtual_mesh(kind)``, with every count set to 0 just before it:
+    (fields, SolveInfo, seconds, counts)."""
+    from alifmm_tpu_torch.parallel import shard
+
+    mesh, axis = virtual_mesh(device, kind)
+    scx, scz = inputs[1:3]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, info = shard.solve_ttf_halo(model, scx, scz, mesh, axis=axis,
+                                     subgrid_size=subgrid_size, cfg=cfg,
+                                     return_info=True, progress=progress)
+    torch.cuda.synchronize()
+    return got, info, time.perf_counter() - t0, read_counts()
+
+
+def halo_rounds(counts, kind, what):
+    """The halo solve's rounds from its K5 launches (ROUND_LAUNCHES a
+    round), after checking that it launched K1 for its patch stages, whole
+    rounds of K5 and no plain twin."""
+    per, n = ROUND_LAUNCHES[kind], counts["slab_sweep"]
+    check(counts["sweep_pass"] > 0 and n > 0 and n % per == 0,
+          f"{what}: {counts['sweep_pass']} K1 and {n} K5 launches (whole "
+          f"rounds of {per} expected)")
+    check(counts["plain_passes"] == 0, f"{what} ran the plain sweep pass "
+          f"on the card")
+    return n // per
+
+
+def field_gap(got, want):
+    """The largest |got - want| over points known in both, source by
+    source (``want`` may lie on the host; each source of ``got`` is copied
+    there in turn); inf where the known points differ."""
+    from alifmm_tpu_torch.ops.stencils import INF
+
+    check(tuple(got.shape) == tuple(want.shape),
+          f"field shape {tuple(got.shape)}, not {tuple(want.shape)}")
+    worst = 0.0
+    for b in range(want.shape[0]):
+        g, w = got[b].to(want.device), want[b]
+        if torch.equal(g, w):
+            continue
+        if not torch.equal(g < INF * 0.5, w < INF * 0.5):
+            return float("inf")
+        worst = max(worst, float(known_gap(g, w).max()))
+    return worst
+
+
+def check_halo_equal(got, info, want, want_info, what):
+    """Max abs 0 from the one-device fields, equal passes and converged."""
+    gap = field_gap(got, want)
+    log(f"  {what}: final passes {info.passes} converged {info.converged} "
+        f"(one device: {want_info[0]}, {want_info[1]}); max abs from the "
+        f"one-device fields {gap}")
+    check(gap == 0.0 and (info.passes, info.converged) == tuple(want_info),
+          f"{what} differs from the one-device solve (max abs {gap}, "
+          f"passes {info.passes} against {want_info[0]}, converged "
+          f"{info.converged} against {want_info[1]})")
+    return gap
+
+
+def phase_halo_fine(inputs, fine, k1_fine_ms, device):
+    """(15a) the fine weld (s = 9: 31 fields of 3808 x 4492, float32,
+    phase 9's budgets) through solve_ttf_halo on four z slabs of virtual
+    ranks: max abs 0 from phase 9's one-device fields (kept on the host),
+    equal passes and converged, its peak device memory and its K5
+    launches (whole rounds); the 961 nearest-point rays through the halo
+    fields equal to phase 9's; then one warm solve timed with its stage
+    split, its rounds beside K1's fine pass (phase 10); then K5 at the
+    fine final shape (the injected state of phase 10): one slab z-sweep,
+    the refreshed x-sweep of the four slabs in one launch (c = 2, G = 4)
+    and one round, each timed warm beside its bound."""
+    from alifmm_tpu_torch import rays, solver, weld_data
+    from alifmm_tpu_torch.ops import cuda_sweep
+    from alifmm_tpu_torch.parallel import shard
+
+    model, _, _, src_xy, rec_xy, tidx = inputs
+    cfg = solver.SolveConfig(**SOLVE_KW)
+    s = weld_data.SUBGRID
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got, info, first, counts = halo_solve(model, inputs, "1d", device, cfg, s)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rounds = halo_rounds(counts, "1d", "the fine weld's halo solve")
+    log(f"  fine weld on four slabs: {first:.4f} s (first solve), {rounds} "
+        f"rounds, launches {counts}, peak device memory {peak:.3f} GB")
+    gap = check_halo_equal(got, info, fine["ttfs"],
+                           (fine["passes"], fine["converged"]),
+                           "the fine weld on four slabs")
+    reset_counts()
+    out = rays.trace_rays(model, got, tidx, src_xy, rec_xy, s, mode="grid",
+                          return_reason=True, **RAY_OPTS)
+    r_counts = read_counts()
+    check(r_counts["march"] == 1 and r_counts["relax_times"] == 1
+          and r_counts["plain_steps"] == 0, f"the fine halo fields' rays "
+          f"launched {r_counts}")
+    same = [torch.equal(a, b) for a, b in zip(out, fine["out"])]
+    log(f"  the 961 nearest-point rays through the halo fields: times, "
+        f"vertices, lengths and reasons equal to phase 9's: {same}")
+    check(all(same), "the rays through the fine halo fields differ from "
+          "phase 9's")
+    del got, out
+    stages = []
+
+    def rec(stage, total, name, seconds):
+        stages.append((name, seconds))
+
+    got, info2, wall, counts2 = halo_solve(model, inputs, "1d", device, cfg,
+                                           s, rec)
+    del got
+    check(info2 == info and counts2["slab_sweep"] == counts["slab_sweep"],
+          "the warm fine halo solve ran another schedule")
+    final_s = stages[-1][1]
+    solve_round_ms = final_s / rounds * 1e3
+    log(f"  warm solve {wall:.4f} s: "
+        + ", ".join(f"{n} {t:.4f} s" for n, t in stages)
+        + f"; the final stage {solve_round_ms:.1f} ms a round "
+        f"({solve_round_ms / k1_fine_ms:.3f} K1 fine passes of "
+        f"{k1_fine_ms:.1f} ms)")
+    # K5 at the fine final shape
+    name, fmodel, tt0, fixed = fine_stage_inputs(inputs)[-1]
+    grid, two_d = shard._halo_grid(*virtual_mesh(device, "1d"))
+    h = shard._Halo(tt0, fmodel, fixed, grid, two_d, None, None)
+    del tt0, fixed
+    torch.cuda.empty_cache()
+    h.exchange_z()
+    k = (1, 0)
+    z_ms = time_events(lambda: h.sweep([k], "z", False, False, False), 2)
+    z_bound, z_by = slab_bound(h, [k])
+    z_lay = h.kernels[(k,), "z"].layout
+    slabs = tuple((iz, 0) for iz in range(h.nz))
+    l0 = cuda_sweep.SLAB_LAUNCHES
+    h.sweep(slabs, "x", False, False, True)
+    n_x = cuda_sweep.SLAB_LAUNCHES - l0
+    x_lay = h.kernels[slabs, "x"].layout
+    check(n_x == 1 and tuple(x_lay) == (False, 4, 2, 4),
+          f"the fine refreshed x-sweep took {n_x} K5 launches in {x_lay}, "
+          f"not one in four blocks of c = 2, G = 4")
+    x_ms = time_events(lambda: h.sweep(slabs, "x", False, False, True), 2)
+    x_bound, x_by = slab_bound(h, slabs)
+    l0 = cuda_sweep.SLAB_LAUNCHES
+    r_ms = time_events(lambda: shard._halo_jacobi_block(h, 1, False), 2)
+    per_round = (cuda_sweep.SLAB_LAUNCHES - l0) / 3
+    r_bound, r_by = slab_bound(h, h.keys, sweeps=4)
+    shape = list(h.t[k].shape)
+    del h
+    torch.cuda.empty_cache()
+    check(per_round == ROUND_LAUNCHES["1d"], f"a fine halo round launched "
+          f"K5 {per_round} times, not {ROUND_LAUNCHES['1d']}")
+    log(f"  K5 at the fine final shape ({name}, slabs {shape}): one slab "
+        f"z-sweep {z_ms:.3f} ms ({z_lay}), bound {z_bound:.4f} ms ({z_by}),"
+        f" share {z_bound / z_ms:.4f}; the refreshed x-sweep of the four "
+        f"slabs, one launch, {x_ms:.3f} ms ({x_lay}), bound {x_bound:.4f} "
+        f"ms ({x_by}), share {x_bound / x_ms:.4f}; a round {r_ms:.1f} ms "
+        f"({r_ms / k1_fine_ms:.3f} K1 fine passes), bound {r_bound:.4f} ms "
+        f"({r_by}), share {r_bound / r_ms:.4f}, {per_round:g} K5 launches")
+    return dict(first=first, wall=wall, stages=stages, final=final_s,
+                passes=info.passes, converged=info.converged, rounds=rounds,
+                launches=counts, k5_launches=counts["slab_sweep"],
+                peak_gb=peak, max_abs=gap, rays_equal=all(same),
+                solve_round_ms=solve_round_ms, k1_pass_ms=k1_fine_ms,
+                slab_shape=shape,
+                slab_z_sweep=dict(ms=z_ms, bound_ms=z_bound, bound_by=z_by,
+                                  share=z_bound / z_ms,
+                                  layout=z_lay._asdict()),
+                refreshed_x_sweep=dict(ms=x_ms, bound_ms=x_bound,
+                                       bound_by=x_by, share=x_bound / x_ms,
+                                       launches=n_x,
+                                       layout=x_lay._asdict()),
+                round=dict(ms=r_ms, bound_ms=r_bound, bound_by=r_by,
+                           share=r_bound / r_ms, k5_launches=per_round))
+
+
+def phase_halo_qsv(inputs, qsv_ttfs, qsv_info, device):
+    """(15b) the qSV weld (phase 11c's model and for_mode("qsv"), 31
+    sources, float32) through solve_ttf_halo on four z slabs and on 2 x 2
+    blocks: max abs 0 from phase 11c's one-device fields, equal passes and
+    converged; seconds, rounds and K5 launches (K5's column mode 2 through
+    whole solves)."""
+    from alifmm_tpu_torch import solver
+
+    model = qsv_weld_model(torch.float32, device)
+    q_inputs = (model,) + tuple(inputs[1:])
+    cfg = solver.SolveConfig.for_mode("qsv")
+    out = {}
+    for kind in ("1d", "2d"):
+        got, info, wall, counts = halo_solve(model, q_inputs, kind, device,
+                                             cfg)
+        rounds = halo_rounds(counts, kind, f"the qSV weld on {kind}")
+        log(f"  qSV weld on {kind}: {wall:.4f} s, {rounds} rounds, launches "
+            f"{counts}")
+        gap = check_halo_equal(got, info, qsv_ttfs, qsv_info,
+                               f"the qSV weld on {kind}")
+        out[kind] = dict(wall=wall, passes=info.passes,
+                         converged=info.converged, rounds=rounds,
+                         k5_launches=counts["slab_sweep"],
+                         k1_launches=counts["sweep_pass"], max_abs=gap)
+    return out
+
+
+def phase_qsh(inputs, qp_times, device):
+    """(15c) the qSH weld (the qSV weld's layout with the qSH pair of
+    ``generate_mode_curves(*QSV_STIFF, c66=QSH_C66, mode="qSH")`` as
+    column 2 and the 3240 m/s parent, for_mode("qsh"), 31 fields, 961
+    rays, float32): directly (solve_ttf + the plane search with the weld's
+    knobs; a warm-up run, then a timed one with every count set to 0 just
+    before it), the auto tracer directly and through ALI_FMM(tracer=
+    "auto") (likewise), and through solve_ttf_halo on four z slabs.
+    Converged within the qsh budget, fields finite, every time finite and
+    positive, the rays that do not arrive exactly those the JAX package
+    does not land (QSH_SEARCH_EARLY, QSH_AUTO_LOST: phase 11c's rule; they
+    are saved to QSH_RAYS_FILE for tests/qsv_ray_records.py), each qSH ray
+    time within QSH_OVER_QP of the same pair's qP time (phase 6), no auto
+    time above the descent's, the facade's times those of the direct auto
+    trace, the halo fields max abs 0 from the direct ones with equal
+    passes and converged."""
+    import warnings
+
+    import alifmm_tpu_torch
+    from alifmm_tpu_torch import solver, weld_data
+    from alifmm_tpu_torch.ops.stencils import INF
+
+    model = qsv_weld_model(torch.float32, device, mode="qSH")
+    q_inputs = (model,) + tuple(inputs[1:])
+    cfg = solver.SolveConfig.for_mode("qsh")
+    run_slice(q_inputs, cfg=cfg)
+    stages = []
+
+    def rec(stage, total, name, seconds):
+        stages.append((name, seconds))
+
+    reset_counts()
+    ttfs, info, out, (t_solve, t_rays, wall) = run_slice(q_inputs, rec, cfg)
+    counts = read_counts()
+    log(f"  direct qSH weld slice warm wall clock {wall:.4f} s (solve "
+        f"{t_solve:.4f} s, rays {t_rays:.4f} s; "
+        + ", ".join(f"{n} {t:.4f} s" for n, t in stages)
+        + f"); final passes {info.passes} converged {info.converged}; "
+        f"launches {counts}")
+    check_tracer_counts(counts, "search", 0, "the direct qSH weld slice")
+    check(info.converged and info.passes < cfg.final_max_passes,
+          f"qSH weld: the final stage did not converge in "
+          f"{cfg.final_max_passes} passes ({info.passes})")
+    check(ttfs.shape == (31, 424, 500) and bool(torch.isfinite(ttfs).all())
+          and bool((ttfs < INF * 0.5).all()),
+          "qSH weld fields not finite everywhere")
+    res = dict(wall=wall, solve=t_solve, rays=t_rays, stages=stages,
+               passes=info.passes, converged=info.converged, counts=counts,
+               search=qsv_search_ends(out, q_inputs[4], "qSH weld, search",
+                                      edge_rule=False),
+               over_qp=check_over_qp(out[3], qp_times, "qSH weld, direct",
+                                     QSH_OVER_QP, "qSH"))
+    auto_times, res["auto"] = qsv_auto_arrival(model, ttfs, q_inputs,
+                                               "qSH weld, auto (direct)",
+                                               lands=False)
+    save_not_arrived(ttfs, q_inputs, out, res["search"]["early"],
+                     auto_times, res["auto"]["not_arrived"], QSH_RAYS_FILE,
+                     "qSH")
+    early = tuple(r["ray"] for r in res["search"]["early"])
+    lost = tuple(sorted(r["ray"] for r in res["auto"]["not_arrived"]))
+    check(early == QSH_SEARCH_EARLY and lost == QSH_AUTO_LOST,
+          f"qSH weld: the rays that do not arrive (search {early}, auto "
+          f"{lost}) are not those the JAX package does not land "
+          f"({QSH_SEARCH_EARLY}, {QSH_AUTO_LOST})")
+    res["auto_over_qp"] = check_over_qp(auto_times, qp_times,
+                                        "qSH weld, auto (direct)",
+                                        QSH_OVER_QP, "qSH")
+    alifmm_tpu_torch.tqdm_disable = True
+    veln, velpn, vel_map = qsv_weld_arrays()
+    _, _, _, _, sx, sy, pairs, dnx = weld_data.workload(0)
+    g, p = qsv_tables(mode="qSH")
+    fm = alifmm_tpu_torch.ALI_FMM(veln, velpn, vel_map, sx, sy, group_vel=g,
+                                  phase_vel=p, dnx=dnx,
+                                  ray_opts={"tracer": "auto"},
+                                  solve_opts=cfg)
+
+    def call():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            t0 = time.perf_counter()
+            tmat = fm.find_all_TTF_rays_parallel(veln, velpn, vel_map,
+                                                 trans_pairs=pairs,
+                                                 n_threads=8)
+            torch.cuda.synchronize()
+            return tmat, time.perf_counter() - t0
+
+    call()
+    reset_counts()
+    tmat, f_wall = call()
+    f_counts = read_counts()
+    what = "qSH weld facade, tracer auto"
+    check_tracer_counts(f_counts, "auto", f_counts["march"], what)
+    pi, pj = np.nonzero(pairs == 1)
+    got = tmat[pi, pj]
+    want = auto_times.double().cpu().numpy()
+    rel = float((np.abs(got - want) / want).max())
+    log(f"  {what}: warm call {f_wall:.4f} s, counts {f_counts}; times "
+        f"against the direct auto trace max rel {rel:.3e}")
+    check(bool((np.isfinite(got) & (got > 0)).all()) and len(got) == 961
+          and not tmat[pairs != 1].any() and rel <= 1e-6,
+          f"{what}: times not finite and positive on exactly the 961 pairs, "
+          f"or not the direct path's")
+    res["facade_auto"] = dict(wall=f_wall, counts=f_counts,
+                              vs_direct_max_rel=rel)
+    got, hinfo, h_wall, h_counts = halo_solve(model, q_inputs, "1d", device,
+                                              cfg)
+    rounds = halo_rounds(h_counts, "1d", "the qSH weld on four slabs")
+    log(f"  qSH weld on four slabs: {h_wall:.4f} s, {rounds} rounds, "
+        f"launches {h_counts}")
+    gap = check_halo_equal(got, hinfo, ttfs, (info.passes, info.converged),
+                           "the qSH weld on four slabs")
+    res["halo"] = dict(wall=h_wall, rounds=rounds, passes=hinfo.passes,
+                       converged=hinfo.converged,
+                       k5_launches=h_counts["slab_sweep"], max_abs=gap)
+    return res
+
+
+def phase_qsh_homogeneous(device):
+    """(15d) homogeneous qSH (QSH_SHAPE, orientation 0, the qSH column
+    everywhere, one interior source) with the full stage schedule and
+    for_mode("qsh"), float32 and float64, against the closed-form
+    elliptical first arrival (``qsh_homogeneous_time``): max and mean
+    relative error over every point but the source within the JAX
+    package's own error on the same model (``QSH_JAX_ERROR``, from
+    tests/qsh_records.py) plus ``QSH_F32_MARGIN``."""
+    from alifmm_tpu_torch import grid, solver
+
+    g, p = qsv_tables(mode="qSH")
+    want = qsh_homogeneous_time()
+    sz, sx = QSH_SOURCE
+    cfg = solver.SolveConfig.for_mode("qsh")
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        model = grid.make_model(*qsh_homogeneous_arrays(), None, g, p,
+                                QSH_DNX, dtype=dtype, device=device)
+        t0 = time.perf_counter()
+        tt, info = solver.solve_ttf(model, torch.tensor([sx * QSH_DNX]),
+                                    torch.tensor([sz * QSH_DNX]), 1, cfg,
+                                    return_info=True)
+        got = tt[0].double().cpu().numpy()
+        sec = time.perf_counter() - t0
+        mx, mean = qsh_errors(got, want)
+        bound = [e + m for e, m in zip(QSH_JAX_ERROR, QSH_F32_MARGIN)]
+        name = str(dtype).replace("torch.", "")
+        log(f"  homogeneous qSH {QSH_SHAPE[0]}x{QSH_SHAPE[1]} {name}: rel "
+            f"err max {mx:.5e} mean {mean:.5e} (JAX {QSH_JAX_ERROR[0]:.5e}, "
+            f"{QSH_JAX_ERROR[1]:.5e}; bound {bound[0]:.5e}, "
+            f"{bound[1]:.5e}); final passes {info.passes} converged "
+            f"{info.converged}; {sec:.3f} s")
+        check(bool(np.isfinite(got).all()) and info.converged,
+              f"homogeneous qSH {name}: not finite or not converged")
+        check(mx <= bound[0] and mean <= bound[1], f"homogeneous qSH {name}: "
+              f"error beyond the JAX package's plus the margin")
+        out[name] = dict(max=mx, mean=mean, passes=info.passes,
+                         converged=info.converged, seconds=sec)
+    return out
+
+
 SCORER_NAMES = {0: "simpson3", 1: "simpson5", 2: "walk", 3: "exact"}
 
 
@@ -4812,6 +5273,9 @@ def main():
     log("[10b] K4 in grid mode on the fine fields: against its twin, and "
         "timed beside its bound")
     k4_fine = phase_descent_fine(inputs, fine, descent_worst)
+    # phase 15a holds the fine halo solve to these fields from the host
+    fine["ttfs"] = fine["ttfs"].cpu()
+    torch.cuda.empty_cache()
     log("[11b] shear modes: homogeneous qSV 33 x 37, float64, "
         "for_mode('qsv')")
     qsv_homog = phase_qsv_homogeneous(device)
@@ -4863,11 +5327,27 @@ def main():
     forms_weld = phase_forms_weld(inputs, ttfs, coarse_times, device)
     log("[14c] the qSV weld slice with an FD envelope "
         "(for_mode('qsv', phase1_use_ali=False))")
-    forms_qsv = phase_forms_qsv(inputs, qsv.pop("ttfs"), coarse_times,
-                                device)
+    qsv_ttfs = qsv.pop("ttfs")
+    forms_qsv = phase_forms_qsv(inputs, qsv_ttfs, coarse_times, device)
     log("[14d] K1's forms timed beside their bounds and K1's default pass")
     forms_timed = phase_forms_timing(inputs, tutorial_final)
     log(f"  phase 14b-14d: {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    log("[15a] the fine weld (s = 9, 3808 x 4492) through solve_ttf_halo "
+        "on four z slabs, against phase 9")
+    halo_fine = phase_halo_fine(inputs, fine, fine_shapes[-1]["ms"], device)
+    del fine["ttfs"]
+    log("[15b] the qSV weld through solve_ttf_halo on four z slabs and on "
+        "2 x 2 blocks, against phase 11c")
+    halo_qsv = phase_halo_qsv(inputs, qsv_ttfs,
+                              (qsv["passes"], qsv["converged"]), device)
+    del qsv_ttfs
+    log("[15c] the qSH weld slice (for_mode('qsh')): direct, through "
+        "ALI_FMM with the auto tracer, and on four z slabs")
+    qsh = phase_qsh(inputs, coarse_times, device)
+    log("[15d] homogeneous qSH against its closed-form first arrival")
+    qsh_homog = phase_qsh_homogeneous(device)
+    log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
 
     check("jax" not in sys.modules, "jax was imported")
     kernels = [{
@@ -4902,6 +5382,11 @@ def main():
             "wall", "solve", "rays", "stages", "passes", "converged",
             "over_qp", "facade_search", "facade_auto")},
         "qsv_homogeneous": qsv_homog,
+        "launches_qsh_slice": qsh["counts"]["sweep_pass"],
+        "qsh_slice": {k: qsh[k] for k in (
+            "wall", "solve", "rays", "stages", "passes", "converged",
+            "over_qp", "auto_over_qp", "facade_auto", "halo")},
+        "qsh_homogeneous": qsh_homog,
         "launches_tutorial": {k: v["counts"]["sweep_pass"]
                               for k, v in tutorial["calls"].items()},
         "tutorial": tutorial,
@@ -5009,6 +5494,12 @@ def main():
         "k1_pass_ms": halo_weld["k1_pass_ms"],
         "solve_ttf_halo": halo_weld["solves"],
         "fixed_budget": halo_fixed,
+        "launches_fine_halo": halo_fine["k5_launches"],
+        "fine_halo": halo_fine,
+        "launches_qsv_halo": {k: v["k5_launches"]
+                              for k, v in halo_qsv.items()},
+        "qsv_halo": halo_qsv,
+        "launches_qsh_halo": qsh["halo"]["k5_launches"],
         "sharded": sharded,
         "facade": halo_facade,
         "registers": {k: v[0] for k, v in regs.items()
@@ -5095,6 +5586,155 @@ def main_k4():
     return 0
 
 
+def main_halo_fine():
+    """``python3 chip_smoke.py --halo-fine``: the halo path's cases too long
+    for the default run, float32 on the weld's 31 sources (phase 9's
+    budgets at s = 9).  Builds K1 and K5 (``sweep.cu``) beside K2 and K3
+    (``rays.cu``), solves the fine weld on one device (phase 9's direct
+    solve, kept on the host), then (a) the fine weld through
+    solve_ttf_halo on 2 x 2 z and x blocks, max abs 0 from one device with
+    equal passes and converged, K5 launches in whole rounds, peak device
+    memory; (b) ALI_FMM(ttf_mode="grid", grid_mesh=four z slabs)
+    .find_all_TTF_rays_parallel(subgrid_size=9), its ray times equal to
+    the same facade's without a mesh (phase 9's facade run), each one
+    call with every count set to 0 just before it; (c) the qSV weld
+    (phase 11c's model, for_mode("qsv")) at s = 9 on one device and on
+    four z slabs: max abs 0 between the two with equal passes and
+    converged, the seconds of each, and the nearest-point rays through
+    the fields with the weld's knobs (recorded under phase 11c's rule,
+    not held), beside the one-device qP fine times.  Prints the card line
+    and one JSON object of the results."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import warnings
+
+    import alifmm_tpu_torch
+    from alifmm_tpu_torch import rays, solver, weld_data
+    from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(f"[1] device {torch.cuda.get_device_name(0)} ({card}); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(b) for b in (cuda_sweep.build,
+                                             cuda_rays.build)]:
+            job.result()
+    log(f"[2] sweep.cu and rays.cu built in {time.perf_counter() - t0:.1f} s")
+    alifmm_tpu_torch.tqdm_disable = True
+    s = weld_data.SUBGRID
+    cfg = solver.SolveConfig(**SOLVE_KW)
+    inputs = weld_inputs(device)
+    out = {}
+    log("[one device] the fine weld, phase 9's direct solve")
+    ttfs, info, qp_rays, (t_solve, _, _) = run_fine_slice(inputs)
+    want = ttfs.cpu()
+    del ttfs
+    log(f"  {t_solve:.4f} s, final passes {info.passes} converged "
+        f"{info.converged}")
+    out["one_device"] = dict(solve=t_solve, passes=info.passes,
+                             converged=info.converged)
+
+    log("[a] the fine weld on 2 x 2 blocks")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got, hinfo, wall, counts = halo_solve(inputs[0], inputs, "2d", device,
+                                          cfg, s)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rounds = halo_rounds(counts, "2d", "the fine weld on 2 x 2")
+    log(f"  {wall:.4f} s, {rounds} rounds, launches {counts}, peak device "
+        f"memory {peak:.3f} GB")
+    gap = check_halo_equal(got, hinfo, want, (info.passes, info.converged),
+                           "the fine weld on 2 x 2")
+    del got
+    out["fine_2x2"] = dict(wall=wall, rounds=rounds, passes=hinfo.passes,
+                           converged=hinfo.converged, launches=counts,
+                           peak_gb=peak, max_abs=gap)
+
+    log("[b] the fine facade with grid_mesh (four z slabs) against the "
+        "facade without one")
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    mesh, axis = virtual_mesh(device, "1d")
+    tmats = {}
+    for key, kw in (("plain", {}),
+                    ("mesh", dict(grid_mesh=mesh, grid_axis=axis))):
+        fm = alifmm_tpu_torch.ALI_FMM(veln, velpn, vel_map, sx, sy,
+                                      stif_den=stif, dnx=dnx,
+                                      ray_opts=RAY_OPTS, solve_opts=SOLVE_KW,
+                                      ttf_mode="grid", **kw)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tmats[key] = fm.find_all_TTF_rays_parallel(
+            veln, velpn, vel_map, subgrid_size=s, stif_den=stif,
+            trans_pairs=pairs, n_threads=8)
+        torch.cuda.synchronize()
+        f_wall = time.perf_counter() - t0
+        f_counts = read_counts()
+        log(f"  facade {key}: {f_wall:.4f} s, launches {f_counts}")
+        check_counts(f_counts, f"the fine facade ({key})")
+        check((f_counts["slab_sweep"] > 0) == (key == "mesh"),
+              f"the fine facade ({key}) launched K5 {f_counts['slab_sweep']} "
+              f"times")
+        out[f"facade_{key}"] = dict(wall=f_wall, counts=f_counts)
+        del fm
+        torch.cuda.empty_cache()
+    equal = bool(np.array_equal(tmats["mesh"], tmats["plain"]))
+    log(f"  ray times with grid_mesh equal to those without: {equal}")
+    check(equal, "the fine facade's ray times with grid_mesh differ from "
+          "those without")
+    out["facade_times_equal"] = equal
+
+    log("[c] the qSV weld at s = 9 on one device and on four z slabs")
+    model = qsv_weld_model(torch.float32, device)
+    q_inputs = (model,) + tuple(inputs[1:])
+    qcfg = solver.SolveConfig.for_mode("qsv")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qttfs, qinfo = solver.solve_ttf(model, q_inputs[1], q_inputs[2], s, qcfg,
+                                    return_info=True)
+    torch.cuda.synchronize()
+    q_solve = time.perf_counter() - t0
+    log(f"  one device: {q_solve:.4f} s, final passes {qinfo.passes} "
+        f"converged {qinfo.converged}")
+    _, _, _, src_xy, rec_xy, tidx = q_inputs
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        q_rays = rays.trace_rays(model, qttfs, tidx, src_xy, rec_xy, s,
+                                 mode="grid", return_reason=True, **RAY_OPTS)
+    qwant = qttfs.cpu()
+    del qttfs
+    search = qsv_search_ends(q_rays, rec_xy, "qSV fine weld, search",
+                             edge_rule=False)
+    ratio = (q_rays[3].double() / qp_rays[3].double()).cpu()
+    log(f"  qSV fine over qP fine ray times: min {float(ratio.min()):.4f} "
+        f"median {float(ratio.median()):.4f} max {float(ratio.max()):.4f}")
+    torch.cuda.empty_cache()
+    got, hinfo, h_wall, counts = halo_solve(model, q_inputs, "1d", device,
+                                            qcfg, s)
+    rounds = halo_rounds(counts, "1d", "the qSV fine weld on four slabs")
+    log(f"  four slabs: {h_wall:.4f} s, {rounds} rounds, launches {counts}")
+    gap = check_halo_equal(got, hinfo, qwant, (qinfo.passes,
+                                               qinfo.converged),
+                           "the qSV fine weld on four slabs")
+    del got
+    out["qsv_fine"] = dict(
+        one_device=dict(solve=q_solve, passes=qinfo.passes,
+                        converged=qinfo.converged),
+        four_slabs=dict(wall=h_wall, rounds=rounds, passes=hinfo.passes,
+                        converged=hinfo.converged, launches=counts,
+                        max_abs=gap),
+        search=search, over_qp=dict(min=float(ratio.min()),
+                                    median=float(ratio.median()),
+                                    max=float(ratio.max())))
+    print(card, flush=True)
+    print(json.dumps({"halo_fine": out}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit({"--k4": main_k4, "--k1-twin": main_k1_twin}.get(
+    sys.exit({"--k4": main_k4, "--k1-twin": main_k1_twin,
+              "--halo-fine": main_halo_fine}.get(
         " ".join(sys.argv[1:]), main)())

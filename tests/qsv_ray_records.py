@@ -1,11 +1,13 @@
-"""The qSV weld's rays that the port's tracers do not land, traced by the
+"""The shear welds' rays that the port's tracers do not land, traced by the
 JAX package on the CPU.  Not a test: a record, run by hand.
 
 ``chip_smoke.py`` (phase 11c) writes them with their receiver fields to
 ``smoke_out/qsv_rays_not_arrived.npz``: the rays the plane search with
 the weld's knobs finishes early, and the rays the auto tracer with its
-defaults does not land.  This script traces the same rays through the same
-fields (float32) with the JAX package: the first with ``trace_rays`` and
+defaults does not land (phase 14c likewise for the qSV weld with an FD
+envelope, phase 15c for the qSH weld: the file names its table mode).
+This script traces the same rays through the same fields (float32) on
+the same model with the JAX package: the first with ``trace_rays`` and
 the weld's knobs, the second with ``trace_rays_descent``, ``trace_rays``
 and ``trace_rays_auto`` at their defaults, and prints each beside the
 port's lengths, reasons and times.
@@ -31,7 +33,8 @@ from alifmm_tpu_torch import weld_data  # noqa: E402
 
 def main(path):
     d = np.load(path)
-    g, p = chip_smoke.qsv_tables()
+    g, p = chip_smoke.qsv_tables(mode=str(d["mode"]) if "mode" in d
+                                 else "qSV")
     veln, velpn, vel_map = chip_smoke.qsv_weld_arrays()
     model = jgrid.make_model(veln, velpn, vel_map, None, g, p, weld_data.DNX,
                              dtype=jnp.float32)

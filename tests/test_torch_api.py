@@ -2,12 +2,15 @@
 package's ALI_FMM, built from the same numpy arrays (float64, 48 x 56, the
 port on the CPU).  Both solvers run a cut stage schedule (9x and 3x
 patches around each source) so that a solve takes seconds; everything
-else is each facade's own path.  Tolerances: fields 1e-9 relative (same
-float64 operations, sums may reassociate), time matrices 1e-8 relative
-(field ulps feed the march's candidate minimum), paths 1e-9 model cells,
-ray lengths equal."""
+else is each facade's own path.  The JAX facade's solving calls run in a
+second process (tests/_jax_side.py), started with the module's fixture,
+while the port runs.  Tolerances: fields 1e-9 relative (same float64
+operations, sums may reassociate), time matrices 1e-8 relative (field
+ulps feed the march's candidate minimum), paths 1e-9 model cells, ray
+lengths equal."""
 
 import dataclasses
+import functools
 import inspect
 import os
 
@@ -24,6 +27,7 @@ from alifmm_tpu_torch import rays as trays
 from alifmm_tpu_torch import solver as tsolver
 from alifmm_tpu_torch import weld_data
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+import _jax_side
 
 SHAPE = (48, 56)
 STAGES = ((1, 9), (2, 3))
@@ -35,28 +39,73 @@ WELD_KNOBS = dict(max_cross=8, step_scale=9, plane_dist=5, quad_vel=3,
 RTOL_FIELDS = 1e-9
 RTOL_TIMES = 1e-8
 ATOL_PATHS = 1e-9
+# the ray tests' receivers, which the update test selects
+MASK = np.array([0, 0, 0, 1, 1, 1])
+# the default knobs' four pairs
+DEFAULT_PAIRS = np.zeros((6, 6))
+DEFAULT_PAIRS[0, 3] = DEFAULT_PAIRS[0, 5] = DEFAULT_PAIRS[2, 4] = 1
+DEFAULT_PAIRS[1, 3] = 1
+
+
+def _arrays():
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(
+        seed=2, shape=SHAPE, n_trans=3, gap=15)
+    return dict(veln=veln, velpn=velpn, vel_map=vel_map,
+                stif=np.round(stif).astype(np.int64), sx=sx, sy=sy,
+                pairs=pairs, dnx=dnx)
+
+
+def _cut_schedule(mp, modules):
+    for mod in modules:
+        mp.setattr(mod, "_COARSE_STAGES", STAGES)
+        mp.setattr(mod, "_COARSE_SEED_SIDE", SEED_SIDE)
+
+
+def _jax_call(what):
+    """The JAX facade's side of a solving test below (``what``: "update",
+    "update_i", "rays weld", "rays default"), as numpy: the fields, or the
+    time matrix with the ray lengths and paths (and ``ray_path(0, 3)``)."""
+    w = _arrays()
+    with pytest.MonkeyPatch.context() as mp:
+        _cut_schedule(mp, (jsolver,))
+        mp.setattr(alifmm_tpu, "tqdm_disable", True, raising=False)
+        args = _model_args(w)
+        if what == "update":
+            return _facades(w)[0].update(*args, stif_den=w["stif"],
+                                         sources=MASK)
+        if what == "update_i":
+            return _facades(w)[0].update_i(4, *args, stif_den=w["stif"])
+        if what == "rays weld":
+            jf = _facades(w, WELD_KNOBS)[0]
+            kw = dict(subgrid_size=weld_data.SUBGRID, trans_pairs=w["pairs"])
+        else:
+            jf = _facades(w)[0]
+            kw = dict(subgrid_size=3, trans_pairs=DEFAULT_PAIRS)
+        out = dict(times=jf.find_all_TTF_rays(*args, stif_den=w["stif"],
+                                              **kw),
+                   ray_len=jf.ray_len, x=jf.ray_paths_x, y=jf.ray_paths_y)
+        if what == "rays weld":
+            out["path"] = jf.ray_path(0, 3)
+        return out
 
 
 @pytest.fixture(scope="module")
 def world():
-    """Both facades' constructor arguments and the cut stage schedule.
-    The port's facades of this module share their solves (see
+    """Both facades' constructor arguments and the cut stage schedule, and
+    the JAX facade's solving calls (``jax``, in the order the tests take
+    them).  The port's facades of this module share their solves (see
     ``_shared_solves``)."""
-    mp = pytest.MonkeyPatch()
-    for mod in (jsolver, tsolver):
-        mp.setattr(mod, "_COARSE_STAGES", STAGES)
-        mp.setattr(mod, "_COARSE_SEED_SIDE", SEED_SIDE)
-    mp.setattr(alifmm_tpu, "tqdm_disable", True, raising=False)
-    mp.setattr(alifmm_tpu_torch, "tqdm_disable", True)
-    mp.setattr(alifmm_tpu_torch.ALI_FMM, "_solve_fields", _shared_solves(
-        alifmm_tpu_torch.ALI_FMM._solve_fields))
-    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(
-        seed=2, shape=SHAPE, n_trans=3, gap=15)
-    arrays = dict(veln=veln, velpn=velpn, vel_map=vel_map,
-                  stif=np.round(stif).astype(np.int64), sx=sx, sy=sy,
-                  pairs=pairs, dnx=dnx)
-    yield arrays
-    mp.undo()
+    jobs = {what: functools.partial(_jax_call, what)
+            for what in ("update", "update_i", "rays weld", "rays default")}
+    with _jax_side.references(jobs) as refs:
+        mp = pytest.MonkeyPatch()
+        _cut_schedule(mp, (jsolver, tsolver))
+        mp.setattr(alifmm_tpu, "tqdm_disable", True, raising=False)
+        mp.setattr(alifmm_tpu_torch, "tqdm_disable", True)
+        mp.setattr(alifmm_tpu_torch.ALI_FMM, "_solve_fields",
+                   _shared_solves(alifmm_tpu_torch.ALI_FMM._solve_fields))
+        yield dict(_arrays(), jax=refs)
+        mp.undo()
 
 
 def _same_model(a, b):
@@ -132,12 +181,11 @@ def test_update_with_sources_mask_matches_jax(world):
     JAX facades one compiled program of three sources.  A facade whose
     transducers are listed in another order then selects the same three
     with an interleaved mask: each field lands at its source's place."""
-    jf, tf = _facades(world)
-    mask = np.array([0, 0, 0, 1, 1, 1])
-    want = jf.update(*_model_args(world), stif_den=world["stif"],
-                     sources=mask)
+    _, tf = _facades(world)
+    mask = MASK
     got = tf.update(*_model_args(world), stif_den=world["stif"],
                     sources=mask)
+    want = world["jax"]["update"].result()
     assert got.dtype == np.float64 and got.shape == (6,) + SHAPE
     assert np.all(got[mask == 0] == 0) and np.all(got[mask == 1].max((1, 2)) > 0)
     np.testing.assert_allclose(got, want, rtol=RTOL_FIELDS, atol=0)
@@ -152,35 +200,37 @@ def test_update_with_sources_mask_matches_jax(world):
 
 
 def test_update_i_matches_jax(world):
-    jf, tf = _facades(world)
-    want = jf.update_i(4, *_model_args(world), stif_den=world["stif"])
+    _, tf = _facades(world)
     got = tf.update_i(4, *_model_args(world), stif_den=world["stif"])
+    want = world["jax"]["update_i"].result()
     assert got.dtype == np.float64 and got.shape == SHAPE
     np.testing.assert_allclose(got, want, rtol=RTOL_FIELDS, atol=0)
 
 
-def _compare_rays(jf, tf, want, got, pairs):
-    np.testing.assert_allclose(got, want, rtol=RTOL_TIMES, atol=0)
+def _compare_rays(want, tf, got, pairs):
+    """The port's facade ``tf`` and its time matrix ``got`` against the
+    JAX facade's results ``want`` (``_jax_call``)."""
+    np.testing.assert_allclose(got, want["times"], rtol=RTOL_TIMES, atol=0)
     traced = pairs == 1
     assert np.all(got[traced] > 0) and np.all(got[~traced] == 0)
-    np.testing.assert_array_equal(tf.ray_len, jf.ray_len)
+    np.testing.assert_array_equal(tf.ray_len, want["ray_len"])
     assert np.all(tf.ray_len[traced] > 2)
-    np.testing.assert_allclose(tf.ray_paths_x, jf.ray_paths_x, rtol=0,
+    np.testing.assert_allclose(tf.ray_paths_x, want["x"], rtol=0,
                                atol=ATOL_PATHS)
-    np.testing.assert_allclose(tf.ray_paths_y, jf.ray_paths_y, rtol=0,
+    np.testing.assert_allclose(tf.ray_paths_y, want["y"], rtol=0,
                                atol=ATOL_PATHS)
 
 
 def test_find_all_rays_weld_knobs_matches_jax_and_parallel(world):
-    jf, tf = _facades(world, WELD_KNOBS)
+    _, tf = _facades(world, WELD_KNOBS)
     kw = dict(subgrid_size=weld_data.SUBGRID, trans_pairs=world["pairs"],
               stif_den=world["stif"])
-    want = jf.find_all_TTF_rays(*_model_args(world), **kw)
     got = tf.find_all_TTF_rays(*_model_args(world), **kw)
-    _compare_rays(jf, tf, want, got, world["pairs"])
+    want = world["jax"]["rays weld"].result()
+    _compare_rays(want, tf, got, world["pairs"])
     # ray_path: trimmed, on the model grid, from transducer 0 to 3
     rx, ry = tf.ray_path(0, 3)
-    wx, wy = jf.ray_path(0, 3)
+    wx, wy = want["path"]
     np.testing.assert_allclose(rx, wx, rtol=0, atol=ATOL_PATHS)
     np.testing.assert_allclose(ry, wy, rtol=0, atol=ATOL_PATHS)
     assert (rx[0], ry[0]) == (tf.isx[0], tf.isz[0])
@@ -196,13 +246,12 @@ def test_find_all_rays_weld_knobs_matches_jax_and_parallel(world):
 def test_find_all_rays_default_knobs_matches_jax(world):
     """The facade's defaults (walk scorer, one cell per step) at
     subgrid_size = 3 on four pairs."""
-    jf, tf = _facades(world)
-    pairs = np.zeros((6, 6))
-    pairs[0, 3] = pairs[0, 5] = pairs[2, 4] = pairs[1, 3] = 1
-    kw = dict(subgrid_size=3, trans_pairs=pairs, stif_den=world["stif"])
-    want = jf.find_all_TTF_rays(*_model_args(world), **kw)
+    _, tf = _facades(world)
+    kw = dict(subgrid_size=3, trans_pairs=DEFAULT_PAIRS,
+              stif_den=world["stif"])
     got = tf.find_all_TTF_rays(*_model_args(world), **kw)
-    _compare_rays(jf, tf, want, got, pairs)
+    _compare_rays(world["jax"]["rays default"].result(), tf, got,
+                  DEFAULT_PAIRS)
 
 
 def _bad_stif(w):

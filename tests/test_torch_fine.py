@@ -3,8 +3,9 @@ port on the CPU): ``grid.refine_model``, ``solver.fine_stage_params`` and
 ``solve_ttf(subgrid_size=3)`` (the first patch stage's seed sign +1
 included), ``trace_rays(mode="grid")`` on fields of the refined grid,
 ``exact_materials=True`` (the per-sample Christoffel solve) through every
-integrator, ``fast_step_scale`` with its uniform mask, and the facade with
-``ttf_mode="grid"``.
+integrator, ``fast_step_scale`` with its uniform mask, the facade with
+``ttf_mode="grid"``, and ``parallel/shard.solve_ttf_halo(subgrid_size=3)``
+on four virtual CPU ranks (z slabs) and on 2 x 2 (z and x blocks).
 
 One fine solve serves the module: the fixture solves the receivers of a
 13 x 11 weld with stiffness cells at s = 3 once in each package, and the
@@ -15,32 +16,43 @@ sign) in both solver modules: each patch stage costs JAX about 15 s to
 trace and compile, and the uncut 127 x 127 patch costs the plain twin 7 s
 a pass.  ``tests/test_torch_solver.py`` holds the uncut schedule's solve.
 The traces pass the facade's index and coordinate types, so that the
-facade's trace reuses a JAX program.
+facade's trace reuses a JAX program.  JAX's solves (the fixture's, the
+facades' and the halo solves) run in a second process
+(tests/_jax_side.py), started with the fixture, while the port runs.
 
 Tolerances: fields and ray times 1e-9 relative (same float64 operations;
 sums may reassociate), facade time matrices 1e-8 (field ulps feed the
 march's candidate minimum), vertices and paths 1e-9 cells, lengths,
-reasons and SolveInfo equal."""
+reasons and SolveInfo equal; the halo solves equal to the port's
+one-device solve bit for bit (the same sweeps in the same order, the same
+stop on the same deltas)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
+from jax.sharding import Mesh as JMesh
 
 import alifmm_tpu
 import alifmm_tpu_torch
 from alifmm_tpu import grid as jgrid
 from alifmm_tpu import rays as jrays
 from alifmm_tpu import solver as jsolver
+from alifmm_tpu.parallel import shard as jshard
 from alifmm_tpu_torch import grid as tgrid
 from alifmm_tpu_torch import rays as trays
 from alifmm_tpu_torch import solver as tsolver
 from alifmm_tpu_torch import weld_data
 from alifmm_tpu_torch.ops import cuda_rays
+from alifmm_tpu_torch.parallel import Mesh
+from alifmm_tpu_torch.parallel import shard as tshard
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+import _jax_side
 
 S = 3
 SHAPE = (13, 11)
@@ -64,6 +76,12 @@ FAST_KNOBS = dict(mode="interp", max_steps=80, quad_vel=3, relax_iters=1,
 # the fine schedules as the packages define them (the fixture cuts them)
 FINE_PARAMS = (tsolver.fine_stage_params, jsolver.fine_stage_params)
 CUT_STAGES = ((2, 9),)
+# The halo solves' polish is residual-driven, at most max(final_max_passes,
+# 4 x polish) passes, unless final_max_polish is set (in both packages);
+# set to the fixed count, it runs the one-device solve's polish.  Four z
+# slabs pad the 37 refined rows to 40; 2 x 2 pads a row and a column.
+HALO_BUDGET = dict(BUDGET, final_max_polish=BUDGET["final_polish_passes"])
+HALO_KINDS = ("1d", "2d")
 
 
 def _cut(params):
@@ -97,18 +115,94 @@ def _recording(fn, into):
     return rec
 
 
+def _workload():
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(
+        seed=4, shape=SHAPE, n_trans=3, gap=3)
+    return dict(veln=veln, velpn=velpn, vel_map=vel_map,
+                stif=np.round(stif).astype(np.int64), sx=sx, sy=sy,
+                pairs=pairs, dnx=dnx)
+
+
+def _meshes(kind):
+    """(port mesh, JAX mesh, axis) of four ranks: z slabs or 2 x 2."""
+    cpu = torch.device("cpu")
+    devs = np.array(jax.devices()[:4])
+    if kind == "1d":
+        return Mesh([cpu] * 4, ("gz",)), JMesh(devs, ("gz",)), "gz"
+    arr = np.empty((2, 2), dtype=object)
+    arr.fill(cpu)
+    return (Mesh(arr, ("gz", "gx")), JMesh(devs.reshape(2, 2), ("gz", "gx")),
+            ("gz", "gx"))
+
+
+# the facades' update mask: the world's receivers
+UPDATE_MASK = np.array([0, 0, 0, 1, 1, 1])
+
+
+def _jax_side_job(what):
+    """JAX's side of the module's solves, the schedule cut as the fixture
+    cuts it, as numpy: "solve" the receivers' solve_ttf(subgrid_size=3)
+    (fields, passes, converged, the first patch stage's outputs);
+    "facade rays" ALI_FMM(ttf_mode="grid").find_all_TTF_rays (the time
+    matrix, ray lengths and paths); "facade update" its ``update`` on
+    UPDATE_MASK; "halo 1d"/"halo 2d" solve_ttf_halo(subgrid_size=3) with
+    HALO_BUDGET (fields, passes, converged)."""
+    w = _workload()
+    args = (w["veln"], w["velpn"], w["vel_map"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(alifmm_tpu, "tqdm_disable", True, raising=False)
+        mp.setattr(jsolver, "fine_stage_params", _cut(FINE_PARAMS[1]))
+        if what.startswith("facade"):
+            jf = _facades(w, SIMPSON_KNOBS if what == "facade rays"
+                          else None)[0]
+            if what == "facade update":
+                return jf.update(*args, stif_den=w["stif"], subgrid_size=S,
+                                 sources=UPDATE_MASK)
+            times = jf.find_all_TTF_rays(*args, subgrid_size=S,
+                                         trans_pairs=w["pairs"],
+                                         stif_den=w["stif"])
+            return dict(times=times, ray_len=jf.ray_len, x=jf.ray_paths_x,
+                        y=jf.ray_paths_y)
+        jm = _facades(w)[0]._make_model(*args, w["stif"])
+        scx, scz = weld_data.ray_pairs(w["sx"], w["sy"], w["pairs"],
+                                       w["dnx"])[:2]
+        if what == "solve":
+            first = []
+            mp.setattr(jsolver, "_stage_first",
+                       _recording(jsolver._stage_first, first))
+            want, info = jsolver.solve_ttf(jm, scx, scz, S, JCFG,
+                                           return_info=True)
+            return (np.asarray(want), int(info.passes), bool(info.converged),
+                    [np.asarray(a) for a in first[0]])
+        _, jmesh, axis = _meshes(what.split()[1])
+        cfg = jsolver.SolveConfig(**HALO_BUDGET, sweep_block=1, patch_block=1)
+        want, info = jshard.solve_ttf_halo(jm, scx, scz, jmesh, axis=axis,
+                                           subgrid_size=S, cfg=cfg,
+                                           return_info=True)
+        return np.asarray(want), int(info.passes), bool(info.converged)
+
+
 @pytest.fixture(scope="module")
 def world():
     """The weld, its transducers, both packages' models (built by their
-    facades, so that the facades' own builds equal them) and the fine
-    solve of its three receivers in each package, with the first patch
-    stage's outputs recorded.  The port's later solves of the same model,
-    sources and budget return this solve."""
-    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(
-        seed=4, shape=SHAPE, n_trans=3, gap=3)
-    w = dict(veln=veln, velpn=velpn, vel_map=vel_map,
-             stif=np.round(stif).astype(np.int64), sx=sx, sy=sy, pairs=pairs,
-             dnx=dnx)
+    facades, so that the facades' own builds equal them), the port's fine
+    solve of its three receivers with the first patch stage's outputs
+    recorded, and JAX's solves (``jax``: ``_jax_side_job``'s, in the order
+    the tests take them), computed in a second process meanwhile.  The
+    port's later solves of the same model, sources and budget return this
+    solve."""
+    jobs = {what: functools.partial(_jax_side_job, what)
+            for what in ("solve", "facade rays", "facade update")
+            + tuple(f"halo {kind}" for kind in HALO_KINDS)}
+    with _jax_side.references(jobs) as refs:
+        yield from _world(refs)
+
+
+def _world(refs):
+    w = _workload()
+    w["jax"] = refs
+    veln, velpn, vel_map, pairs, dnx = (w[k] for k in (
+        "veln", "velpn", "vel_map", "pairs", "dnx"))
     mp = pytest.MonkeyPatch()
     mp.setattr(alifmm_tpu, "tqdm_disable", True, raising=False)
     mp.setattr(alifmm_tpu_torch, "tqdm_disable", True)
@@ -117,18 +211,15 @@ def world():
     jf, tf = _facades(w)
     args = (veln, velpn, vel_map, w["stif"])
     jm, tm = jf._make_model(*args), tf._make_model(*args)
-    scx, scz = weld_data.ray_pairs(sx, sy, pairs, dnx)[:2]
+    scx, scz = weld_data.ray_pairs(w["sx"], w["sy"], pairs, dnx)[:2]
 
-    jfirst, tfirst = [], []
-    first = (tsolver._stage_first, jsolver._stage_first)
-    mp.setattr(jsolver, "_stage_first", _recording(first[1], jfirst))
-    mp.setattr(tsolver, "_stage_first", _recording(first[0], tfirst))
-    want, winfo = jsolver.solve_ttf(jm, scx, scz, S, JCFG, return_info=True)
+    tfirst = []
+    first = tsolver._stage_first
+    mp.setattr(tsolver, "_stage_first", _recording(first, tfirst))
     got, info = tsolver.solve_ttf(tm, torch.from_numpy(scx),
                                   torch.from_numpy(scz), S, TCFG,
                                   return_info=True)
-    mp.setattr(tsolver, "_stage_first", first[0])
-    mp.setattr(jsolver, "_stage_first", first[1])
+    mp.setattr(tsolver, "_stage_first", first)
 
     solve = tsolver.solve_ttf
     key = (scx.tobytes(), scz.tobytes(), S, repr(TCFG))
@@ -142,9 +233,7 @@ def world():
         return solve(model, x, z, subgrid_size, cfg, progress, return_info)
 
     mp.setattr(tsolver, "solve_ttf", memo)
-    w.update(jm=jm, tm=tm, scx=scx, scz=scz, want=np.asarray(want),
-             winfo=winfo, got=got.numpy(), info=info,
-             jfirst=[np.asarray(a) for a in jfirst[0]],
+    w.update(jm=jm, tm=tm, scx=scx, scz=scz, got=got.numpy(), info=info,
              tfirst=[a.numpy() for a in tfirst[0][:3]])
     yield w
     mp.undo()
@@ -222,20 +311,21 @@ def test_fine_stage_params_match_jax(s):
 def test_solve_ttf_fine_matches_jax(world):
     """solve_ttf(subgrid_size=3) (the schedule cut as stated above):
     fields on the refined grid, and the final stage's SolveInfo."""
-    want, got = world["want"], world["got"]
+    want, passes, converged, _ = world["jax"]["solve"].result()
+    got = world["got"]
     assert got.shape == want.shape == (3,) + FINE
     assert np.all(want < 5e8) and np.all(np.isfinite(got))
     _close(got, want, "fine fields")
-    info, winfo = world["info"], world["winfo"]
-    assert (info.passes, info.converged) == (int(winfo.passes),
-                                             bool(winfo.converged))
+    info = world["info"]
+    assert (info.passes, info.converged) == (passes, converged)
 
 
 def test_stage_first_fine_seed_sign(world):
     """The fine path's first stage (a 37 x 37 patch at 9x, analytic seed of
     side 13 with the effective angle veln + angle) as both packages ran it
     inside the solve."""
-    (wtt, wbz, wbx), (gtt, gbz, gbx) = world["jfirst"], world["tfirst"]
+    (wtt, wbz, wbx), (gtt, gbz, gbx) = (world["jax"]["solve"].result()[3],
+                                        world["tfirst"])
     assert gtt.shape == wtt.shape == (3, 37, 37)
     np.testing.assert_array_equal(gbz, wbz)
     np.testing.assert_array_equal(gbx, wbx)
@@ -434,33 +524,52 @@ def test_fast_step_scale_blocked_matches_jax():
 def test_facade_grid_mode_rays_match_jax(world):
     """ALI_FMM(ttf_mode="grid").find_all_TTF_rays(subgrid_size=3): the
     receivers' fields on the refined grid, the rays through them."""
-    jf, tf = _facades(world, SIMPSON_KNOBS)
+    _, tf = _facades(world, SIMPSON_KNOBS)
     kw = dict(subgrid_size=S, trans_pairs=world["pairs"],
               stif_den=world["stif"])
     args = (world["veln"], world["velpn"], world["vel_map"])
-    want = jf.find_all_TTF_rays(*args, **kw)
     got = tf.find_all_TTF_rays(*args, **kw)
-    np.testing.assert_allclose(got, want, rtol=RTOL_TIMES, atol=0)
+    want = world["jax"]["facade rays"].result()
+    np.testing.assert_allclose(got, want["times"], rtol=RTOL_TIMES, atol=0)
     traced = world["pairs"] == 1
     assert np.all(got[traced] > 0) and np.all(got[~traced] == 0)
-    np.testing.assert_array_equal(tf.ray_len, jf.ray_len)
+    np.testing.assert_array_equal(tf.ray_len, want["ray_len"])
     assert np.all(tf.ray_len[traced] > 4)
-    for name in ("ray_paths_x", "ray_paths_y"):
-        np.testing.assert_allclose(getattr(tf, name), getattr(jf, name),
-                                   rtol=0, atol=ATOL_CELLS, err_msg=name)
+    for name, key in (("ray_paths_x", "x"), ("ray_paths_y", "y")):
+        np.testing.assert_allclose(getattr(tf, name), want[key], rtol=0,
+                                   atol=ATOL_CELLS, err_msg=name)
 
 
 def test_facade_update_fine_matches_jax(world):
     """update(subgrid_size=3) on the receivers: float64 fields on the
     refined grid, zeros for the masked sources."""
-    jf, tf = _facades(world)
-    mask = np.array([0, 0, 0, 1, 1, 1])
+    _, tf = _facades(world)
+    mask = UPDATE_MASK
     args = (world["veln"], world["velpn"], world["vel_map"])
-    want = jf.update(*args, stif_den=world["stif"], subgrid_size=S,
-                     sources=mask)
     got = tf.update(*args, stif_den=world["stif"], subgrid_size=S,
                     sources=mask)
+    want = world["jax"]["facade update"].result()
     assert got.dtype == np.float64 and got.shape == (6,) + FINE
     assert np.all(got[mask == 0] == 0)
     _close(got, want, "update fields")
     np.testing.assert_array_equal(got[mask == 1], world["got"])
+
+
+@pytest.mark.parametrize("kind", HALO_KINDS)
+def test_solve_ttf_halo_fine_matches(world, kind):
+    """solve_ttf_halo(subgrid_size=3) with the fixture's cut schedule and
+    a matched polish budget, the refined grid padded to the blocks (four z
+    slabs: 37 rows to 40; 2 x 2: a row and a column): equal to the port's
+    one-device solve_ttf with an equal SolveInfo, within 1e-9 of JAX's
+    solve_ttf_halo with equal passes and converged."""
+    mesh, _, axis = _meshes(kind)
+    got, info = tshard.solve_ttf_halo(
+        world["tm"], world["scx"], world["scz"], mesh, axis=axis,
+        subgrid_size=S, cfg=tsolver.SolveConfig(**HALO_BUDGET),
+        return_info=True)
+    assert got.shape == (3,) + FINE
+    assert torch.equal(got, torch.from_numpy(world["got"]))
+    assert info == world["info"]
+    want, passes, converged = world["jax"][f"halo {kind}"].result()
+    _close(got.numpy(), want, f"halo fields on {kind}")
+    assert (info.passes, info.converged) == (passes, converged)

@@ -1,7 +1,8 @@
 """PyTorch port, shear modes: the mode table builders of materials.py,
 SolveConfig.accuracy() and for_mode(), solver.solve_one, the staged solve
-and the facade on a qSV model, against the JAX package (float64, the port
-on the CPU).
+and the facade on a qSV model, and qSH staged solves (the same model with
+the qSH pair, and a homogeneous qSH model against its closed-form first
+arrival), against the JAX package (float64, the port on the CPU).
 
 The qSV model is tests/test_qsv_mode.py's rough model shrunk to 17 x 19:
 the first-arrival table pair of generate_mode_curves on every point (a
@@ -10,9 +11,16 @@ stage (``STAGES``, seed side 4) under ``for_mode("qsv")`` with the patch
 and polish budgets cut, and ``final_polish_passes=1`` so that the
 residual-driven polish of the batched solve (``final_max_polish`` 96)
 differs from solve_one's fixed count.  One solve of each kind runs per
-module; the facades reuse the staged one.  Tolerances: tables 1e-12
-relative (the same numpy code), fields 1e-9 relative, ray times 1e-8
-relative."""
+module; the facades reuse the staged one.  The qSH solves keep the
+model's shape, the two sources and the budget under for_mode("qsh"),
+which equals for_mode("qsv"), so that JAX runs them on the qSV solve's
+compiled programs.  JAX's solves run in a second process
+(tests/_jax_side.py), one after another, while the port runs.
+Tolerances: tables 1e-12 relative (the same numpy code), fields 1e-9
+relative, ray times 1e-8 relative; the homogeneous qSH field's error
+against the closed-form time no larger than JAX's plus 1e-12."""
+
+import functools
 
 import dataclasses
 
@@ -32,6 +40,7 @@ from alifmm_tpu_torch import materials as tmats
 from alifmm_tpu_torch import solver as tsolver
 from alifmm_tpu_torch import weld_data
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+import _jax_side
 
 RTOL_TABLES = 1e-12
 RTOL_FIELDS = 1e-9
@@ -53,24 +62,76 @@ WELD_KNOBS = dict(max_cross=8, step_scale=9, plane_dist=5, quad_vel=3,
                   relax_iters=1, relax_quad=3, max_steps=20, cand_stride=7.0)
 
 
-def _qsv_tables():
-    g, p = jmats.generate_mode_curves(*STIFF, mode="qSV")
+# the homogeneous qSH model's sources (x, z in cells): interior points
+HOMOG_SOURCES = np.array([[9.0, 8.0], [6.0, 11.0]])
+
+
+def _qsv_tables(mode="qSV"):
+    c66 = C66 if mode == "qSH" else None
+    g, p = jmats.generate_mode_curves(*STIFF, c66=c66, mode=mode)
     return (np.stack([np.arange(361.0), g], axis=1),
             np.stack([np.arange(361.0), p], axis=1))
 
 
-def _model_arrays():
+def _model_arrays(homogeneous=False):
     Z, X = SHAPE
     zz, xx = np.meshgrid(np.arange(Z), np.arange(X), indexing="ij")
     veln = np.round((20.0 + 70.0 * np.sin(zz / 6.0) * np.cos(xx / 5.0))
                     % 180)
+    if homogeneous:
+        veln = np.zeros((Z, X))
     return veln, np.ones((Z, X), dtype=int), np.ones((Z, X))
 
 
-def _configs():
-    return (jsolver.SolveConfig.for_mode("qsv", sweep_block=1,
+def _configs(mode="qsv"):
+    return (jsolver.SolveConfig.for_mode(mode, sweep_block=1,
                                          patch_block=1, **CUT),
-            tsolver.SolveConfig.for_mode("qsv", **CUT))
+            tsolver.SolveConfig.for_mode(mode, **CUT))
+
+
+# the solves: (table mode, homogeneous orientation) of each model, and its
+# sources (x, z in metres)
+SOLVES = {"qsv": ("qSV", False), "qsh": ("qSH", False),
+          "qsh homogeneous": ("qSH", True)}
+
+
+def _sources(name):
+    if SOLVES[name][1]:
+        return HOMOG_SOURCES[:, 0] * DNX, HOMOG_SOURCES[:, 1] * DNX
+    return TRANS_X[2:] * DNX, TRANS_Z[2:] * DNX
+
+
+def _model_args(name):
+    mode, homogeneous = SOLVES[name]
+    return (*_model_arrays(homogeneous), None, *_qsv_tables(mode), DNX)
+
+
+def _jax_solve(name, one=False):
+    """JAX's staged solve of ``name``'s model and sources under its
+    mode's preset, (field, passes, converged); ``one``: solve_one of the
+    first source, the field."""
+    jm = jgrid.make_model(*_model_args(name), dtype=jnp.float64)
+    jcfg = _configs(SOLVES[name][0].lower())[0]
+    scx, scz = _sources(name)
+    if one:
+        return np.asarray(jsolver.solve_one(jm, scx[0], scz[0], STAGES,
+                                            SEED_SIDE, -1.0, jcfg))
+    j, info = jsolver._staged_solve(jm, jnp.asarray(scx), jnp.asarray(scz),
+                                    STAGES, SEED_SIDE, -1.0, jcfg,
+                                    return_info=True)
+    return np.asarray(j), int(info.passes), bool(info.converged)
+
+
+def _qsh_time(scx, scz):
+    """The closed-form qSH first arrival on the homogeneous model
+    (orientation 0): t = sqrt((x / v0)^2 + (z / v90)^2), v0 = sqrt(c66 /
+    rho) along x, v90 = sqrt(c44 / rho) along z."""
+    c44, rho = STIFF[3], STIFF[4]
+    v0, v90 = np.sqrt(C66 / rho), np.sqrt(c44 / rho)
+    zz, xx = np.meshgrid(np.arange(SHAPE[0]) * DNX,
+                         np.arange(SHAPE[1]) * DNX, indexing="ij")
+    return np.stack([np.hypot((xx - x) / v0, (zz - z) / v90)
+                     for x, z in zip(scx, scz)])
 
 
 # --------------------------------------------------------------------- #
@@ -196,26 +257,29 @@ def test_preset_errors():
 # --------------------------------------------------------------------- #
 
 @pytest.fixture(scope="module")
-def qsv():
-    """Both packages' qSV models, solve_one for source 0 and the staged
-    solve of the two receivers (with its SolveInfo)."""
-    gtab, ptab = _qsv_tables()
-    veln, velpn, vel_map = _model_arrays()
-    args = (veln, velpn, vel_map, None, gtab, ptab, DNX)
-    jm = jgrid.make_model(*args, dtype=jnp.float64)
-    tm = tgrid.make_model(*args, dtype=torch.float64, device="cpu")
-    jcfg, tcfg = _configs()
-    scx, scz = TRANS_X[2:] * DNX, TRANS_Z[2:] * DNX
-    out = dict(jm=jm, tm=tm, jcfg=jcfg, tcfg=tcfg, scx=scx, scz=scz,
-               tables=(gtab, ptab), arrays=(veln, velpn, vel_map))
-    out["j_one"] = np.asarray(jsolver.solve_one(
-        jm, scx[0], scz[0], STAGES, SEED_SIDE, -1.0, jcfg))
+def jax_refs():
+    """The module's JAX solves, in the order the tests take them,
+    computed in a second process while the port runs."""
+    jobs = {"one": functools.partial(_jax_solve, "qsv", one=True)}
+    jobs.update({name: functools.partial(_jax_solve, name)
+                 for name in SOLVES})
+    jobs["facade"] = _jax_facade
+    with _jax_side.references(jobs) as refs:
+        yield refs
+
+
+@pytest.fixture(scope="module")
+def qsv(jax_refs):
+    """The qSV model (the port's), solve_one for source 0 and the staged
+    solve of the two receivers (with its SolveInfo) in the port, and
+    JAX's (``jax_refs``)."""
+    tm = tgrid.make_model(*_model_args("qsv"), dtype=torch.float64,
+                          device="cpu")
+    tcfg = _configs()[1]
+    scx, scz = _sources("qsv")
+    out = dict(tm=tm, tcfg=tcfg, scx=scx, scz=scz, jax=jax_refs)
     out["t_one"] = tsolver.solve_one(tm, scx[0], scz[0], STAGES, SEED_SIDE,
                                      -1.0, tcfg)
-    j, jinfo = jsolver._staged_solve(jm, jnp.asarray(scx), jnp.asarray(scz),
-                                     STAGES, SEED_SIDE, -1.0, jcfg,
-                                     return_info=True)
-    out["j_staged"], out["j_info"] = np.asarray(j), jinfo
     out["t_staged"], out["t_info"] = tsolver._staged_solve(
         tm, scx, scz, STAGES, SEED_SIDE, -1.0, tcfg, return_info=True)
     return out
@@ -226,7 +290,7 @@ def _rel(got, want):
 
 
 def test_solve_one_matches_jax(qsv):
-    got, want = qsv["t_one"], qsv["j_one"]
+    got, want = qsv["t_one"], qsv["jax"]["one"].result()
     assert got.shape == SHAPE and got.dtype == torch.float64
     got = got.numpy()
     assert np.isfinite(got).all()
@@ -234,9 +298,10 @@ def test_solve_one_matches_jax(qsv):
     # solve_one runs exactly final_polish_passes polish rounds where the
     # batched solve runs its residual-driven polish (final_max_polish):
     # the fields differ, in both packages alike
-    j_gap = qsv["j_staged"][0] - want
+    j_staged = qsv["jax"]["qsv"].result()[0]
+    j_gap = j_staged[0] - want
     t_gap = qsv["t_staged"][0].numpy() - got
-    assert _rel(qsv["j_staged"][0], want) > 1e-2
+    assert _rel(j_staged[0], want) > 1e-2
     np.testing.assert_allclose(t_gap, j_gap, rtol=0,
                                atol=RTOL_FIELDS * np.abs(want).max())
 
@@ -252,23 +317,86 @@ def test_solve_one_is_the_fixed_polish_staged_solve(qsv):
 
 def test_staged_solve_with_info_matches_jax(qsv):
     got, info = qsv["t_staged"], qsv["t_info"]
-    want, winfo = qsv["j_staged"], qsv["j_info"]
+    want, passes, converged = qsv["jax"]["qsv"].result()
     assert got.shape == (2,) + SHAPE
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_FIELDS, atol=0)
-    assert info.passes == int(winfo.passes)
-    assert info.converged == bool(winfo.converged)
+    assert info.passes == passes
+    assert info.converged == converged
     assert info.converged and info.passes < 96
+
+
+def _port_solve(name):
+    tm = tgrid.make_model(*_model_args(name), dtype=torch.float64,
+                          device="cpu")
+    scx, scz = _sources(name)
+    return tsolver._staged_solve(tm, scx, scz, STAGES, SEED_SIDE, -1.0,
+                                 _configs("qsh")[1], return_info=True)
+
+
+def test_qsh_staged_solve_matches_jax(qsv):
+    """The qSV model with the qSH pair (c66 = 98e9) as its table column,
+    the two receivers' staged solve under for_mode("qsh"): within 1e-9 of
+    JAX with an equal SolveInfo; qSH's convex slowness converges in fewer
+    passes than qSV's."""
+    got, info = _port_solve("qsh")
+    want, passes, converged = qsv["jax"]["qsh"].result()
+    assert got.shape == (2,) + SHAPE
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_FIELDS, atol=0)
+    assert (info.passes, info.converged) == (passes, converged)
+    assert info.converged and info.passes < qsv["t_info"].passes
+
+
+def test_qsh_homogeneous_matches_jax_and_closed_form(qsv):
+    """Homogeneous qSH at orientation 0 (elliptical: the first arrival is
+    closed-form), two interior sources: the port within 1e-9 of JAX, and
+    its largest and mean relative error against the closed-form time over
+    every point but the sources no larger than JAX's plus 1e-12."""
+    got, info = _port_solve("qsh homogeneous")
+    want, passes, converged = qsv["jax"]["qsh homogeneous"].result()
+    got = got.numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL_FIELDS, atol=0)
+    assert (info.passes, info.converged) == (passes, converged)
+    assert info.converged
+    t = _qsh_time(*_sources("qsh homogeneous"))
+    mask = t > 0
+    errs = [np.abs(f - t)[mask] / t[mask] for f in (got, want)]
+    assert errs[0].max() <= errs[1].max() + 1e-12
+    assert errs[0].mean() <= errs[1].mean() + 1e-12
+
+
+FACADE_KW = dict(subgrid_size=weld_data.SUBGRID, trans_pairs=PAIRS,
+                 n_threads=2)
+
+
+def _facade_args():
+    gtab, ptab = _qsv_tables()
+    return (*_model_arrays(), TRANS_X * DNX, TRANS_Z * DNX), dict(
+        group_vel=gtab, phase_vel=ptab, dnx=DNX, ray_opts=WELD_KNOBS)
+
+
+def _jax_facade():
+    """The JAX facade's find_all_TTF_rays_parallel on the qSV tables with
+    the cut stage schedule: (time matrix, ray lengths, the table's largest
+    velocity)."""
+    args, kw = _facade_args()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jsolver, "_COARSE_STAGES", STAGES)
+        mp.setattr(jsolver, "_COARSE_SEED_SIDE", SEED_SIDE)
+        mp.setattr(alifmm_tpu, "tqdm_disable", True, raising=False)
+        jf = alifmm_tpu.ALI_FMM(*args, dtype=jnp.float64,
+                                solve_opts=_configs()[0], **kw)
+        times = jf.find_all_TTF_rays_parallel(*args[:3], **FACADE_KW)
+        return times, jf.ray_len, float(jf.velocity_dat[:, 1].max())
 
 
 @pytest.fixture
 def facades(qsv, monkeypatch):
-    """Both facades on the qSV tables with the cut stage schedule; the
-    port's reuses the staged solve of ``qsv`` (the same model, receivers
-    and budget, held against JAX above)."""
-    for mod in (jsolver, tsolver):
-        monkeypatch.setattr(mod, "_COARSE_STAGES", STAGES)
-        monkeypatch.setattr(mod, "_COARSE_SEED_SIDE", SEED_SIDE)
-    monkeypatch.setattr(alifmm_tpu, "tqdm_disable", True, raising=False)
+    """The port's facade on the qSV tables with the cut stage schedule; it
+    reuses the staged solve of ``qsv`` (the same model, receivers and
+    budget, held against JAX above)."""
+    monkeypatch.setattr(tsolver, "_COARSE_STAGES", STAGES)
+    monkeypatch.setattr(tsolver, "_COARSE_SEED_SIDE", SEED_SIDE)
     monkeypatch.setattr(alifmm_tpu_torch, "tqdm_disable", True)
     solve = alifmm_tpu_torch.ALI_FMM._solve_fields
 
@@ -284,30 +412,22 @@ def facades(qsv, monkeypatch):
         return solve(self, model, scx, scz, subgrid_size, progress)
 
     monkeypatch.setattr(alifmm_tpu_torch.ALI_FMM, "_solve_fields", shared)
-    gtab, ptab = qsv["tables"]
-    veln, velpn, vel_map = qsv["arrays"]
-    sx, sy = TRANS_X * DNX, TRANS_Z * DNX
-    kw = dict(group_vel=gtab, phase_vel=ptab, dnx=DNX, ray_opts=WELD_KNOBS)
-    jf = alifmm_tpu.ALI_FMM(veln, velpn, vel_map, sx, sy,
-                            dtype=jnp.float64, solve_opts=qsv["jcfg"], **kw)
-    tf = alifmm_tpu_torch.ALI_FMM(veln, velpn, vel_map, sx, sy,
-                                  dtype=torch.float64, device="cpu",
+    args, kw = _facade_args()
+    tf = alifmm_tpu_torch.ALI_FMM(*args, dtype=torch.float64, device="cpu",
                                   solve_opts=qsv["tcfg"], **kw)
-    return jf, tf, (veln, velpn, vel_map)
+    return qsv["jax"]["facade"], tf, args[:3]
 
 
 def test_facade_qsv_rays_match_jax(facades):
-    jf, tf, arrays = facades
-    kw = dict(subgrid_size=weld_data.SUBGRID, trans_pairs=PAIRS,
-              n_threads=2)
-    want = jf.find_all_TTF_rays_parallel(*arrays, **kw)
-    got = tf.find_all_TTF_rays_parallel(*arrays, **kw)
+    jax_facade, tf, arrays = facades
+    got = tf.find_all_TTF_rays_parallel(*arrays, **FACADE_KW)
+    want, ray_len, vmax = jax_facade.result()
     np.testing.assert_allclose(got, want, rtol=RTOL_TIMES, atol=0)
     traced = PAIRS == 1
     assert np.all(got[traced] > 0) and np.all(got[~traced] == 0)
-    np.testing.assert_array_equal(tf.ray_len, jf.ray_len)
+    np.testing.assert_array_equal(tf.ray_len, ray_len)
     # qSV speeds lie in the table's 2.3-3.2 km/s: no ray beats the
     # straight line at the fastest speed
     d = np.hypot(TRANS_X[2:][None] - TRANS_X[:2][:, None],
                  TRANS_Z[2:][None] - TRANS_Z[:2][:, None]) * DNX
-    assert np.all(got[:2, 2:] >= d / jf.velocity_dat[:, 1].max())
+    assert np.all(got[:2, 2:] >= d / vmax)

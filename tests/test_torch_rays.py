@@ -3,7 +3,11 @@ and with the walk scorer, the grid mode, exact materials and the adaptive
 stride, relax_rays, ray_times, K3's composed twin and the segment
 integrators against the JAX package on the same fields and model
 (float64), the first-wins selections on inputs built to tie, the in-place
-waves on which K3 rests, and the kernels' floor-mod by 180."""
+waves on which K3 rests, and the kernels' floor-mod by 180.  The JAX
+package's uncompiled walks run in a second process (tests/_jax_side.py),
+started with the module's fixture, while the port runs."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from alifmm_tpu_torch import rays as trays
 from alifmm_tpu_torch import weld_data
 from alifmm_tpu_torch.ops import cuda_rays
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+import _jax_side
 
 RTOL = 1e-9  # same float64 operations; sums may reassociate (ulps)
 S = weld_data.SUBGRID
@@ -28,15 +33,45 @@ RAY_OPTS = dict(max_cross=8, step_scale=9, plane_dist=5, quad_vel=3,
                 relax_iters=1, relax_quad=3, max_steps=20, cand_stride=7.0)
 
 
-@pytest.fixture(scope="module")
-def setup():
+# the seeds of test_exact_walk_matches_uncompiled_jax's fields
+UNCOMPILED_SEEDS = (7, 9)
+
+
+def _world():
+    """(JAX model, model arrays, receivers' sources, the rays)."""
     veln, velpn, vel_map, stif = weld_data.weld_model_arrays(4, SHAPE)
-    jm = jgrid.make_model(veln, velpn, vel_map, stif, None, None,
-                          weld_data.DNX, dtype=jnp.float64)
-    tm = tgrid.make_model(veln, velpn, vel_map, stif, None, None,
-                          weld_data.DNX, dtype=torch.float64, device="cpu")
+    args = (veln, velpn, vel_map, stif, None, None, weld_data.DNX)
+    jm = jgrid.make_model(*args, dtype=jnp.float64)
     sx, sy, pairs = weld_data.transducers(SHAPE, weld_data.DNX, 3, 15)
-    scx, scz, src_xy, rec_xy, tidx = weld_data.ray_pairs(sx, sy, pairs)
+    return jm, args, weld_data.ray_pairs(sx, sy, pairs)
+
+
+def _jax_uncompiled_walk(seed):
+    """JAX's exact-materials walk on the fields of ``seed``, run without
+    jit: trace_rays' outputs as numpy."""
+    jm, _, (scx, scz, src_xy, rec_xy, tidx) = _world()
+    ttfs = _fields(scx, scz, seed)
+    with jax.disable_jit():
+        out = jrays.trace_rays(jm, jnp.asarray(ttfs), jnp.asarray(tidx),
+                               jnp.asarray(src_xy), jnp.asarray(rec_xy), S,
+                               mode="interp", exact_materials=True,
+                               return_reason=True)
+    return [np.asarray(a) for a in out]
+
+
+@pytest.fixture(scope="module")
+def uncompiled():
+    """JAX's uncompiled walks, computed in a second process."""
+    jobs = {seed: functools.partial(_jax_uncompiled_walk, seed)
+            for seed in UNCOMPILED_SEEDS}
+    with _jax_side.references(jobs) as refs:
+        yield refs
+
+
+@pytest.fixture(scope="module")
+def setup(uncompiled):
+    jm, args, (scx, scz, src_xy, rec_xy, tidx) = _world()
+    tm = tgrid.make_model(*args, dtype=torch.float64, device="cpu")
     return jm, tm, _fields(scx, scz, 7), src_xy, rec_xy, tidx
 
 
@@ -287,8 +322,8 @@ def test_unported_modes_raise(setup, kw):
     assert wlen.min() > 3 and np.all(wt > 0)
 
 
-@pytest.mark.parametrize("seed", [7, 9])
-def test_exact_walk_matches_uncompiled_jax(setup, seed):
+@pytest.mark.parametrize("seed", UNCOMPILED_SEEDS)
+def test_exact_walk_matches_uncompiled_jax(setup, uncompiled, seed):
     """The exact-materials case above on fields of seeds 7 and 9, against
     the JAX package run without jit.  Compiled, JAX's walk scores some
     axis-aligned candidate segments about 5x too low when it scores a batch
@@ -300,14 +335,10 @@ def test_exact_walk_matches_uncompiled_jax(setup, seed):
     sx, sy, pairs = weld_data.transducers(SHAPE, weld_data.DNX, 3, 15)
     ttfs = _fields(*weld_data.ray_pairs(sx, sy, pairs)[:2], seed=seed)
     kw = dict(mode="interp", exact_materials=True, return_reason=True)
-    with jax.disable_jit():
-        want = jrays.trace_rays(jm, jnp.asarray(ttfs), jnp.asarray(tidx),
-                                jnp.asarray(src_xy), jnp.asarray(rec_xy), S,
-                                **kw)
     got = trays.trace_rays(tm, torch.from_numpy(ttfs), torch.from_numpy(tidx),
                            torch.from_numpy(src_xy), torch.from_numpy(rec_xy),
                            S, **kw)
-    wx, wy, wlen, wt, wr = (np.asarray(a) for a in want)
+    wx, wy, wlen, wt, wr = uncompiled[seed].result()
     gx, gy, glen, gt, gr = (a.numpy() for a in got)
     np.testing.assert_array_equal(glen, wlen)
     np.testing.assert_array_equal(gr, wr)

@@ -72,10 +72,12 @@ def _isotropic(Z, X):
     return jm, _to_torch(jm)
 
 
-def _qsv(Z, X):
-    """tests/test_shard.py's rotating-orientation qSV model."""
+def _qsv(Z, X, mode="qSV"):
+    """tests/test_shard.py's rotating-orientation qSV model (``mode="qSH"``:
+    the same model with the qSH pair, c66 = 98e9)."""
+    c66 = 98e9 if mode == "qSH" else None
     g, p = jmats.generate_mode_curves(263e9, 145e9, 216e9, 129e9, 7800.0,
-                                      mode="qSV")
+                                      c66=c66, mode=mode)
     gtab = np.stack([np.arange(361.0), g], axis=1)
     ptab = np.stack([np.arange(361.0), p], axis=1)
     zz, xx = np.meshgrid(np.arange(Z), np.arange(X), indexing="ij")
@@ -263,14 +265,15 @@ RESIDUAL = dict(n_inner=1, polish=1, rel_tol=3e-3, max_outer=8,
                 max_polish=4)
 # the weldish model's sources: an interior one and one on slab 0's last row
 WELDISH_SOURCES = [(16, 20), (7, 3)]
+SHEAR_MODES = ("qSV", "qSH")
 
 
-def _jax_halo(kind, budget, qsv=False):
+def _jax_halo(kind, budget, mode=None):
     """JAX's solve_halo_sharded on the 32 x 40 weldish model's two sources
-    (``qsv``: the qSV model's one source, unbatched): (field, passes,
-    converged)."""
-    if qsv:
-        jm = _qsv(32, 40)[0]
+    (``mode`` "qSV" or "qSH": that shear model's one source, unbatched):
+    (field, passes, converged)."""
+    if mode:
+        jm = _qsv(32, 40, mode)[0]
         tt, fixed = (a[0] for a in _seeds(32, 40, [(16, 20)]))
     else:
         jm = _weldish(32, 40)[0]
@@ -301,7 +304,8 @@ def jax_refs():
     computed in a second process while the port runs."""
     jobs = {f"fixed {k}": functools.partial(_jax_halo, k, FIXED_BUDGET)
             for k in ("1d", "2d")}
-    jobs["qsv"] = functools.partial(_jax_halo, "1d", FIXED_BUDGET, True)
+    jobs.update({mode: functools.partial(_jax_halo, "1d", FIXED_BUDGET, mode)
+                 for mode in SHEAR_MODES})
     jobs["residual"] = functools.partial(_jax_halo, "1d", RESIDUAL)
     jobs.update({f"ttf {k}": functools.partial(_jax_ttf, k)
                  for k in ("1d", "2d")})
@@ -339,11 +343,13 @@ def test_halo_fixed_budget_equals_single_device(jax_refs, weldish, kind):
     assert info.converged == converged
 
 
-def test_halo_fixed_budget_qsv_anisotropic(jax_refs):
+@pytest.mark.parametrize("mode", SHEAR_MODES)
+def test_halo_fixed_budget_qsv_anisotropic(jax_refs, mode):
     """The qSV model of tests/test_shard.py (an interpolated table column,
-    rotating orientations) on four slabs: equal to the single-device
-    solve, within 1e-9 of JAX's halo solve."""
-    tm = _qsv(32, 40)[1]
+    rotating orientations), and the same model with the qSH pair, on four
+    slabs: equal to the single-device solve, within 1e-9 of JAX's halo
+    solve."""
+    tm = _qsv(32, 40, mode)[1]
     tt, fixed = _seeds(32, 40, [(16, 20)])
     single, _ = tsweep.solve_fixpoint(
         torch.from_numpy(tt), tm, torch.from_numpy(fixed), rel_tol=0.0,
@@ -355,7 +361,7 @@ def test_halo_fixed_budget_qsv_anisotropic(jax_refs):
                                    axis=axis, **FIXED_BUDGET)
     assert got.shape == (32, 40)
     assert torch.equal(got, single[0])
-    _close(got.numpy(), jax_refs["qsv"].result()[0], RTOL_JAX)
+    _close(got.numpy(), jax_refs[mode].result()[0], RTOL_JAX)
 
 
 def test_halo_residual_driven_matches(jax_refs, weldish):

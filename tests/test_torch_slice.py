@@ -1,6 +1,7 @@
 """PyTorch port, the slice end to end: model -> telescoped fields -> rays on
 a small seeded weld, each package running its own pipeline from the same
-numpy inputs (float64)."""
+numpy inputs (float64).  JAX's pipeline runs in a second process
+(tests/_jax_side.py) while the port runs."""
 
 import numpy as np
 import torch
@@ -15,6 +16,7 @@ from alifmm_tpu_torch import rays as trays
 from alifmm_tpu_torch import solver as tsolver
 from alifmm_tpu_torch import weld_data
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+import _jax_side
 
 RTOL_FIELDS = 1e-9
 RTOL_TIMES = 1e-8  # end to end: field ulps feed the march's candidate argmin
@@ -25,37 +27,47 @@ RAY_OPTS = dict(max_cross=8, step_scale=9, plane_dist=5, quad_vel=3,
                 relax_iters=1, relax_quad=3, max_steps=20, cand_stride=7.0)
 
 
-def test_weld_slice_matches_jax():
+def _workload():
     veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(
         seed=2, shape=SHAPE, n_trans=3, gap=15)
-    scx, scz, src_xy, rec_xy, tidx = weld_data.ray_pairs(sx, sy, pairs, dnx)
-    S = weld_data.SUBGRID
+    return ((veln, velpn, vel_map, stif, None, None, dnx),
+            weld_data.ray_pairs(sx, sy, pairs, dnx))
 
-    jm = jgrid.make_model(veln, velpn, vel_map, stif, None, None, dnx,
-                          dtype=jnp.float64)
+
+def _jax_slice():
+    """JAX's pipeline: (fields, passes, converged, trace_rays' outputs)."""
+    model_args, (scx, scz, src_xy, rec_xy, tidx) = _workload()
+    jm = jgrid.make_model(*model_args, dtype=jnp.float64)
     jcfg = jsolver.SolveConfig(**BUDGET, sweep_block=1, patch_block=1)
     jf, jinfo = jsolver._staged_solve(jm, jnp.asarray(scx), jnp.asarray(scz),
                                       STAGES, 4, -1.0, jcfg, return_info=True)
     want = jrays.trace_rays(jm, jf, jnp.asarray(tidx), jnp.asarray(src_xy),
-                            jnp.asarray(rec_xy), S, mode="interp",
-                            return_reason=True, **RAY_OPTS)
+                            jnp.asarray(rec_xy), weld_data.SUBGRID,
+                            mode="interp", return_reason=True, **RAY_OPTS)
+    return (np.asarray(jf), int(jinfo.passes), bool(jinfo.converged),
+            [np.asarray(a) for a in want])
 
-    tm = tgrid.make_model(veln, velpn, vel_map, stif, None, None, dnx,
-                          dtype=torch.float64, device="cpu")
-    tf, tinfo = tsolver._staged_solve(tm, torch.from_numpy(scx),
-                                      torch.from_numpy(scz), STAGES, 4, -1.0,
-                                      tsolver.SolveConfig(**BUDGET),
-                                      return_info=True)
-    got = trays.trace_rays(tm, tf, torch.from_numpy(tidx),
-                           torch.from_numpy(src_xy), torch.from_numpy(rec_xy),
-                           S, mode="interp", return_reason=True, **RAY_OPTS)
 
-    jf, tf = np.asarray(jf), tf.numpy()
+def test_weld_slice_matches_jax():
+    model_args, (scx, scz, src_xy, rec_xy, tidx) = _workload()
+    S = weld_data.SUBGRID
+    with _jax_side.references({"slice": _jax_slice}) as refs:
+        tm = tgrid.make_model(*model_args, dtype=torch.float64, device="cpu")
+        tf, tinfo = tsolver._staged_solve(tm, torch.from_numpy(scx),
+                                          torch.from_numpy(scz), STAGES, 4,
+                                          -1.0, tsolver.SolveConfig(**BUDGET),
+                                          return_info=True)
+        got = trays.trace_rays(tm, tf, torch.from_numpy(tidx),
+                               torch.from_numpy(src_xy),
+                               torch.from_numpy(rec_xy), S, mode="interp",
+                               return_reason=True, **RAY_OPTS)
+        jf, passes, converged, want = refs["slice"].result()
+
+    tf = tf.numpy()
     assert np.all(jf < 5e8) and np.all(np.isfinite(tf))
     np.testing.assert_allclose(tf, jf, rtol=RTOL_FIELDS, atol=0)
-    assert (tinfo.passes, tinfo.converged) == (int(jinfo.passes),
-                                               bool(jinfo.converged))
-    _, _, wlen, wt, wr = (np.asarray(a) for a in want)
+    assert (tinfo.passes, tinfo.converged) == (passes, converged)
+    _, _, wlen, wt, wr = want
     _, _, glen, gt, gr = (a.numpy() for a in got)
     np.testing.assert_array_equal(glen, wlen)
     np.testing.assert_array_equal(gr, wr)

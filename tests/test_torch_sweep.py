@@ -2,7 +2,11 @@
 against the JAX XLA sweep (float64) and against the Pallas sweep kernel
 run in interpret mode (float32), on the 20 x 26 model of
 tests/test_pallas_sweep.py with three seeded sources, and on a version of
-it whose table column varies with the angle (qSV tables)."""
+it whose table column varies with the angle (qSV tables).  JAX's
+fixpoints and the Pallas run go to a second process (tests/_jax_side.py),
+started with the module's fixture, while the port runs."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from alifmm_tpu_torch import grid as tgrid
 from alifmm_tpu_torch.ops import cuda_sweep
 from alifmm_tpu_torch.ops import sweep as tsweep
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+import _jax_side
 
 RTOL_F64 = 1e-9   # same operations in float64: ulps, no tie flips
 RTOL_PALLAS = 1e-4  # the kernel's folded-coefficient velocity and
@@ -61,8 +66,51 @@ def _seeded(shape, dtype, B=3):
     return tt0, fixed
 
 
+# solve_fixpoint's budgets: the joint fixpoint, and the forms' fixpoints
+FIXPOINT = dict(rel_tol=1e-4, max_passes=8, polish_passes=3)
+FORM_BUDGET = dict(rel_tol=1e-4, max_passes=4, polish_passes=2)
+FORMS = [dict(inner=2), dict(phase1_use_ali=False), dict(polish_use_fd=False),
+         dict(use_ali=False)]
+
+
+def _jax_fixpoint(form=None):
+    """JAX's solve_fixpoint on the float64 model's seeds: the joint
+    fixpoint (``form`` None) or the FORM_BUDGET fixpoint with ``form``'s
+    keywords; (field, passes, converged)."""
+    jm = _jax_model(jnp.float64)
+    tt0, fixed = _seeded(jm.shape, np.float64)
+    kw = FIXPOINT if form is None else dict(FORM_BUDGET, **form)
+    want, info = jsweep.solve_fixpoint(jnp.asarray(tt0), jm,
+                                       jnp.asarray(fixed), **kw)
+    return np.asarray(want), int(info.passes), bool(info.converged)
+
+
+def _jax_pallas():
+    """The Pallas kernel's fixpoint (interpret mode, float32) on the seeds,
+    as tests/test_pallas_sweep.py runs it."""
+    pallas_sweep.INTERPRET = True
+    jm = _jax_model(jnp.float32)
+    tt0, fixed = _seeded(jm.shape, np.float32)
+    want, _ = pallas_sweep.solve_fixpoint_pallas(
+        jnp.asarray(tt0), jm, jnp.asarray(fixed), rel_tol=1e-4, max_passes=8,
+        polish_passes=3, batch_chunk=2,
+    )
+    return np.asarray(want)
+
+
 @pytest.fixture(scope="module")
-def f64():
+def jax_refs():
+    """The module's JAX fixpoints, in the order the tests take them."""
+    jobs = {"fixpoint": _jax_fixpoint}
+    jobs.update({f"form {k}": functools.partial(_jax_fixpoint, form)
+                 for k, form in enumerate(FORMS)})
+    jobs["pallas"] = _jax_pallas
+    with _jax_side.references(jobs) as refs:
+        yield refs
+
+
+@pytest.fixture(scope="module")
+def f64(jax_refs):
     jm = _jax_model(jnp.float64)
     tm = _torch_model(jm, torch.float64)
     tt0, fixed = _seeded(jm.shape, np.float64)
@@ -95,18 +143,17 @@ def test_gs_pass_min_and_replace_match_jax(f64):
 
 
 @pytest.mark.parametrize("solve", ["plain", "pass_loop"])
-def test_solve_fixpoint_matches_jax(f64, solve):
+def test_solve_fixpoint_matches_jax(f64, jax_refs, solve):
     """Joint two-phase fixpoint: the plain solve_fixpoint, and the pass
     loop the solver calls (which takes the plain twin on CPU tensors)."""
     jm, tm, tt0, fixed = f64
-    kw = dict(rel_tol=1e-4, max_passes=8, polish_passes=3)
-    want, winfo = jsweep.solve_fixpoint(jnp.asarray(tt0), jm,
-                                        jnp.asarray(fixed), **kw)
     fn = tsweep.solve_fixpoint if solve == "plain" else cuda_sweep.solve_fixpoint
-    got, info = fn(torch.from_numpy(tt0), tm, torch.from_numpy(fixed), **kw)
-    _assert_close(got.numpy(), np.asarray(want), fixed, RTOL_F64)
-    assert info.passes == int(winfo.passes)
-    assert info.converged == bool(winfo.converged)
+    got, info = fn(torch.from_numpy(tt0), tm, torch.from_numpy(fixed),
+                   **FIXPOINT)
+    want, passes, converged = jax_refs["fixpoint"].result()
+    _assert_close(got.numpy(), want, fixed, RTOL_F64)
+    assert info.passes == passes
+    assert info.converged == converged
 
 
 def _qsv_table_model():
@@ -179,23 +226,19 @@ def test_isotropic_replace_pass_matches_jax():
     assert np.any(want2 != want)
 
 
-@pytest.mark.parametrize("kw", [dict(inner=2), dict(phase1_use_ali=False),
-                                dict(polish_use_fd=False),
-                                dict(use_ali=False)])
-def test_unported_forms_raise(f64, kw):
+@pytest.mark.parametrize("kw", FORMS)
+def test_unported_forms_raise(f64, jax_refs, kw):
     """The fixpoint forms that raised NotImplementedError before they were
     ported now match the JAX package's, with equal SolveInfo: the
     two-loop form (inner > 0 with block 1, a differing phase-1 operator,
     the FD-free polish) and the FD-only operator in both phases."""
     jm, tm, tt0, fixed = f64
     t, f = torch.from_numpy(tt0), torch.from_numpy(fixed)
-    budget = dict(rel_tol=1e-4, max_passes=4, polish_passes=2)
-    want, winfo = jsweep.solve_fixpoint(jnp.asarray(tt0), jm,
-                                        jnp.asarray(fixed), **budget, **kw)
-    got, info = tsweep.solve_fixpoint(t, tm, f, **budget, **kw)
-    _assert_close(got.numpy(), np.asarray(want), fixed, RTOL_F64)
-    assert info.passes == int(winfo.passes)
-    assert info.converged == bool(winfo.converged)
+    got, info = tsweep.solve_fixpoint(t, tm, f, **FORM_BUDGET, **kw)
+    want, passes, converged = jax_refs[f"form {FORMS.index(kw)}"].result()
+    _assert_close(got.numpy(), want, fixed, RTOL_F64)
+    assert info.passes == passes
+    assert info.converged == converged
 
 
 def test_graphed_pass_needs_cuda_fields(f64):
@@ -210,21 +253,16 @@ def test_graphed_pass_needs_cuda_fields(f64):
     assert tsweep.CALLS == calls
 
 
-def test_plain_twin_matches_pallas_kernel(monkeypatch):
+def test_plain_twin_matches_pallas_kernel(jax_refs):
     """As tests/test_pallas_sweep.py runs the Pallas kernel (interpret
     mode, float32), against the port's plain twin on the same model."""
-    monkeypatch.setattr(pallas_sweep, "INTERPRET", True)
     jm = _jax_model(jnp.float32)
     tm = _torch_model(jm, torch.float32)
     tt0, fixed = _seeded(jm.shape, np.float32)
-    want, _ = pallas_sweep.solve_fixpoint_pallas(
-        jnp.asarray(tt0), jm, jnp.asarray(fixed), rel_tol=1e-4, max_passes=8,
-        polish_passes=3, batch_chunk=2,
-    )
     got, _ = tsweep.solve_fixpoint(torch.from_numpy(tt0), tm,
-                                   torch.from_numpy(fixed), rel_tol=1e-4,
-                                   max_passes=8, polish_passes=3)
-    _assert_close(got.numpy(), np.asarray(want), fixed, RTOL_PALLAS)
+                                   torch.from_numpy(fixed), **FIXPOINT)
+    _assert_close(got.numpy(), jax_refs["pallas"].result(), fixed,
+                  RTOL_PALLAS)
 
 
 @pytest.mark.parametrize("shape,lanes", [((424, 500), 4), ((109, 109), 8),
