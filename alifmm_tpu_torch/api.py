@@ -27,6 +27,13 @@ the rays it cannot certify); the other keys are the tracer's knobs.
 the grid split over its axis ``grid_axis`` (one name for z slabs, two for
 z and x blocks): ``parallel/shard.solve_ttf_halo``, whose final stage runs
 on the slab sweep kernel K5 with halo exchanges between the slabs.
+
+Under a ``torch.profiler`` trace (``utils/profiling.trace``) each public
+solving method is the range ``alifmm.call.<method>``; inside it the model
+builds (``alifmm.build``), the solve (``alifmm.solve``), the tracer
+(``alifmm.rays``), each blocking copy of a result to the host
+(``alifmm.facade.read``) and the float64 conversion with the scatter into
+the outputs (``alifmm.facade.convert``).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from . import rays as rayslib
 from . import solver as solverlib
 from .utils import progress as progresslib
 from .utils import validate
+from .utils.profiling import span, spanned
 
 __all__ = ["ALI_FMM"]
 
@@ -53,6 +61,13 @@ _POSITIONAL = {"model", "rec_ttf", "ttf_index", "source_xy", "receiver_xy",
 _TRACERS = {"search": rayslib.trace_rays,
             "descent": rayslib.trace_rays_descent,
             "auto": rayslib.trace_rays_auto}
+
+
+def _to_host(t):
+    """A result tensor as a host array: on the card a blocking read, the
+    range ``alifmm.facade.read``."""
+    with span("facade.read"):
+        return t.cpu().numpy()
 
 
 class ALI_FMM:
@@ -184,6 +199,7 @@ class ALI_FMM:
     # ------------------------------------------------------------------ #
     # travel-time fields
     # ------------------------------------------------------------------ #
+    @spanned("call.update")
     def update(self, veln, velpn, vel_map=None, stif_den=None,
                subgrid_size=1, sources=None):
         """All-source travel-time fields, float64 numpy.  Sources with
@@ -197,11 +213,14 @@ class ALI_FMM:
             model, self.scx[sel], self.scz[sel], subgrid_size,
             progress=progresslib.auto_bar(f"TTF solve ({len(sel)} sources)"),
         )
-        out_fields = out_fields.cpu().numpy().astype(np.float64)
-        full = np.zeros((self.nsrc,) + out_fields.shape[1:])
-        full[sel] = out_fields
+        out_fields = _to_host(out_fields)
+        with span("facade.convert"):
+            out_fields = out_fields.astype(np.float64)
+            full = np.zeros((self.nsrc,) + out_fields.shape[1:])
+            full[sel] = out_fields
         return full
 
+    @spanned("call.update_parallel")
     def update_parallel(self, veln, velpn, vel_map=None, stif_den=None,
                         subgrid_size=1, sources=None, n_threads=2,
                         low_mem=False):
@@ -219,6 +238,7 @@ class ALI_FMM:
             return None
         return fields
 
+    @spanned("call.update_i")
     def update_i(self, source_i, veln, velpn, vel_map, stif_den=None,
                  subgrid_size=1):
         """Single-source field, float64 numpy."""
@@ -229,7 +249,9 @@ class ALI_FMM:
             self.scz[source_i : source_i + 1],
             subgrid_size,
         )
-        return out.cpu().numpy().astype(np.float64)[0]
+        out = _to_host(out)
+        with span("facade.convert"):
+            return out.astype(np.float64)[0]
 
     # ------------------------------------------------------------------ #
     # travel-time fields + rays
@@ -328,33 +350,33 @@ class ALI_FMM:
             len(pair_i), f"rays ({len(pair_i)} pairs)"
         )
         _t0 = time.perf_counter()
-        rx, ry, lens, times = trace_fn(
-            model, ttfs, ttf_index, src_xy, rec_xy, s,
-            mode=self._ttf_mode, **opts,
-        )
+        with span("rays"):
+            rx, ry, lens, times = trace_fn(
+                model, ttfs, ttf_index, src_xy, rec_xy, s,
+                mode=self._ttf_mode, **opts,
+            )
         # the copies to the host wait for the device
-        rx = rx.cpu().numpy().astype(np.float64)
-        ry = ry.cpu().numpy().astype(np.float64)
-        lens = lens.cpu().numpy()
-        times_arr = times.cpu().numpy().astype(np.float64)
+        rx, ry, lens, times = (_to_host(t) for t in (rx, ry, lens, times))
         ray_bar.set_postfix_str(f"{time.perf_counter() - _t0:.2f}s")
         ray_bar.update(len(pair_i))
         ray_bar.close()
 
-        times_mat = np.zeros((n_trans, n_trans))
-        times_mat[pair_i, pair_j] = times_arr
-
-        if save_rays:
-            P = rx.shape[1]
-            self.ray_paths_x = np.zeros((n_trans, n_trans, P))
-            self.ray_paths_y = np.zeros((n_trans, n_trans, P))
-            self.ray_len = np.zeros((n_trans, n_trans), dtype=int)
-            # coordinates back on the model grid
-            self.ray_paths_x[pair_i, pair_j] = rx / s
-            self.ray_paths_y[pair_i, pair_j] = ry / s
-            self.ray_len[pair_i, pair_j] = lens
+        with span("facade.convert"):
+            rx, ry = rx.astype(np.float64), ry.astype(np.float64)
+            times_mat = np.zeros((n_trans, n_trans))
+            times_mat[pair_i, pair_j] = times.astype(np.float64)
+            if save_rays:
+                P = rx.shape[1]
+                self.ray_paths_x = np.zeros((n_trans, n_trans, P))
+                self.ray_paths_y = np.zeros((n_trans, n_trans, P))
+                self.ray_len = np.zeros((n_trans, n_trans), dtype=int)
+                # coordinates back on the model grid
+                self.ray_paths_x[pair_i, pair_j] = rx / s
+                self.ray_paths_y[pair_i, pair_j] = ry / s
+                self.ray_len[pair_i, pair_j] = lens
         return times_mat
 
+    @spanned("call.find_all_TTF_rays")
     def find_all_TTF_rays(self, veln, velpn, vel_map=None, subgrid_size=9,
                           trans_pairs=None, stif_den=None, save_rays=True):
         """Travel-time fields and rays for all transducer pairs.  Returns
@@ -364,6 +386,7 @@ class ALI_FMM:
             save_rays,
         )
 
+    @spanned("call.find_all_TTF_rays_parallel")
     def find_all_TTF_rays_parallel(self, veln, velpn, vel_map=None,
                                    subgrid_size=9, trans_pairs=None,
                                    stif_den=None, n_threads=2, low_mem=False,

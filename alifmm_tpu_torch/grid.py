@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import materials as mat
+from .utils.profiling import span, spanned
 
 __all__ = ["Model", "make_model", "model_from_numpy", "resolve_device",
            "refine_nearest", "refine_nearest_3d", "refine_model",
@@ -320,6 +321,7 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+@spanned("build.upload")
 def model_from_numpy(fields: dict, has_stif, phase_info=None, group_info=None,
                      ray_info=None, device=None, dtype=torch.float32,
                      skew_info=None) -> Model:
@@ -343,12 +345,15 @@ def model_from_numpy(fields: dict, has_stif, phase_info=None, group_info=None,
                  skew_info=skew_info, **kw)
 
 
+@spanned("build")
 def make_model(veln, velpn, vel_map=None, stif_den=None, group_tab=None,
                phase_tab=None, dnx=1e-3, dtype=torch.float32,
                device=None) -> Model:
     """Assemble a Model from host arrays, with the fallback-slowness planes
     and ray curve tables precomputed on the host in numpy.  ``device``: the
-    card by default, ``"cpu"`` on request (see ``resolve_device``)."""
+    card by default, ``"cpu"`` on request (see ``resolve_device``).  Under
+    a profiler the build is the range ``alifmm.build``, with
+    ``alifmm.build.planes``, ``.tables`` and ``.upload`` inside it."""
     device = resolve_device(device)
     npdt = torch.empty((), dtype=dtype).numpy().dtype
     veln_np = np.asarray(veln).astype(npdt)
@@ -368,25 +373,26 @@ def make_model(veln, velpn, vel_map=None, stif_den=None, group_tab=None,
         phase_tab = p if phase_tab is None else phase_tab
     group_tab_np = np.asarray(group_tab).astype(npdt)
     phase_tab_np = np.asarray(phase_tab).astype(npdt)
-    fb = _np_fallback_slowness_planes(
-        veln_np, velpn_np, vel_map_np, stif_np, group_tab_np, has_stif
-    ).astype(npdt)
-    curves, skew, curve_idx = _ray_curve_tables(
-        velpn_np, stif_np, group_tab_np, phase_tab_np, has_stif
-    )
-    used = np.unique(velpn_np)
-    used = used[used > 0]
+    with span("build.planes"):
+        fb = _np_fallback_slowness_planes(
+            veln_np, velpn_np, vel_map_np, stif_np, group_tab_np, has_stif
+        ).astype(npdt)
+    with span("build.tables"):
+        curves, skew, curve_idx = _ray_curve_tables(
+            velpn_np, stif_np, group_tab_np, phase_tab_np, has_stif
+        )
+        used = np.unique(velpn_np)
+        used = used[used > 0]
+        classes = np.unique(curve_idx)
+        info = dict(phase_info=mat.column_info(phase_tab_np, used),
+                    group_info=mat.column_info(group_tab_np, used),
+                    ray_info=mat.column_info(curves, classes),
+                    skew_info=mat.column_info(skew, classes))
     fields = dict(
         veln=veln_np, velpn=velpn_np, vel_map=vel_map_np, stif=stif_np,
         group_tab=group_tab_np, phase_tab=phase_tab_np, fallback_slowness=fb,
         dnx=np.asarray(dnx, dtype=npdt), ray_curves=curves,
         ray_curve_idx=curve_idx, ray_skew=skew,
     )
-    return model_from_numpy(
-        fields, has_stif,
-        phase_info=mat.column_info(phase_tab_np, used),
-        group_info=mat.column_info(group_tab_np, used),
-        ray_info=mat.column_info(curves, np.unique(curve_idx)),
-        skew_info=mat.column_info(skew, np.unique(curve_idx)),
-        device=device, dtype=dtype,
-    )
+    return model_from_numpy(fields, has_stif, device=device, dtype=dtype,
+                            **info)

@@ -18,8 +18,12 @@ the parallel-in-block order) are a second library,
 default form) or its form kernel (and raises on any failure), for CPU
 tensors it runs the plain twin (``ops/sweep.gs_pass``).  ``LAUNCHES``
 counts K1's default launches, ``FORM_LAUNCHES`` the others by form.
-``solve_fixpoint`` is the two-phase pass loop the solver calls; it reads
-the per-pass delta and scale to the host once per pass.
+``solve_fixpoint`` is the two-phase pass loop the solver calls; each pass
+reads the per-source delta and scale to the host (two blocking reads).
+Under a profiler the loop is the range ``alifmm.fixpoint``, each pass
+``alifmm.pass`` and each of its reads ``alifmm.pass.read``
+(``utils/profiling.span``); ``pack_model`` is ``alifmm.pack``, with its
+read of ``dnx`` as ``alifmm.pack.read``.
 
 K5 (``csrc/sweep.cu``, same library) runs one directional sweep over the
 slabs of a decomposed grid, in place, in global coordinates, with the
@@ -42,6 +46,7 @@ import torch
 
 from .. import grid as gridlib
 from .. import materials as mat
+from ..utils.profiling import span, spanned
 from . import _build, sweep
 
 __all__ = ["LAUNCHES", "FORM_LAUNCHES", "SLAB_LAUNCHES", "build",
@@ -149,6 +154,7 @@ class Packed(typing.NamedTuple):
     dnx: float
 
 
+@spanned("pack")
 def pack_model(model: gridlib.Model) -> Packed:
     """Stack a (shared or per-source batched) model into kernel planes."""
     dt = model.dtype
@@ -161,6 +167,8 @@ def pack_model(model: gridlib.Model) -> Packed:
         planes = planes[None]
     mode, const = mat.column_modes(model.phase_info, model.phase_tab.shape[1])
     dev = model.device
+    with span("pack.read"):
+        dnx = float(model.dnx)
     return Packed(
         planes=planes.contiguous(),
         planes_t=planes.transpose(-1, -2).contiguous(),
@@ -168,7 +176,7 @@ def pack_model(model: gridlib.Model) -> Packed:
         col_mode=torch.from_numpy(mode).to(dev),
         col_const=torch.from_numpy(const).to(dt).to(dev),
         has_stif=bool(model.has_stif),
-        dnx=float(model.dnx),
+        dnx=dnx,
     )
 
 
@@ -270,13 +278,15 @@ def _launch(tt, fixed, packed, replace, active, cluster=None, lanes=None,
     return out, delta, scale
 
 
+@spanned("pass")
 def sweep_pass(tt, model: gridlib.Model, fixed, replace, active=None,
                packed: Packed | None = None, form=sweep.DEFAULT):
     """One sweep pass of ``form`` (``sweep.Form``) over (B, Z, X) fields:
     K1 on a CUDA tensor, the plain twin on a CPU tensor.
     ``replace``/``active``: per-source flags (inactive sources keep their
     field).  Returns (new, delta, scale) with per-source delta and scale
-    as host arrays."""
+    as host arrays: on the card two blocking reads, each the range
+    ``alifmm.pass.read`` inside the pass's ``alifmm.pass``."""
     B = tt.shape[0]
     replace = np.array(np.broadcast_to(np.asarray(replace, bool), (B,)))
     active = (np.ones(B, bool) if active is None
@@ -286,9 +296,14 @@ def sweep_pass(tt, model: gridlib.Model, fixed, replace, active=None,
     packed = pack_model(model) if packed is None else packed
     out, delta, scale = _launch(tt, fixed, packed, replace, active,
                                 form=form)
-    return out, delta.cpu().numpy(), scale.cpu().numpy()
+    with span("pass.read"):
+        delta = delta.cpu()
+    with span("pass.read"):
+        scale = scale.cpu()
+    return out, delta.numpy(), scale.numpy()
 
 
+@spanned("fixpoint")
 def solve_fixpoint(tt0, model: gridlib.Model, fixed, rel_tol: float = 1e-6,
                    max_passes: int = 50, min_passes: int = 2,
                    polish_passes: int = 5, max_polish_passes: int | None = None,

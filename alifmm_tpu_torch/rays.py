@@ -49,6 +49,7 @@ from . import grid as gridlib
 from . import materials as mats
 from .ops import cuda_rays
 from .ops._math import sqrt
+from .utils.profiling import span
 
 __all__ = ["segment_time", "segment_time_quad", "segment_time_quad3",
            "ray_times", "relax_rays", "trace_rays", "trace_rays_descent",
@@ -727,6 +728,15 @@ def march_spec(model: gridlib.Model, subgrid_size: int,
                      mode == "grid")
 
 
+def _read_int(t):
+    """``int(t)`` of a 0-d tensor: on the card a blocking read, the range
+    ``alifmm.rays.read``."""
+    if not t.is_cuda:
+        return int(t)
+    with span("rays.read"):
+        return int(t)
+
+
 def _ray_inputs(model, rec_ttf, ttf_index, source_xy, receiver_xy):
     """A tracer's inputs on the model's device, the field indices as int64
     and checked against the stack where they lie: for indices on the host
@@ -737,8 +747,8 @@ def _ray_inputs(model, rec_ttf, ttf_index, source_xy, receiver_xy):
     rec_ttf = torch.as_tensor(rec_ttf).to(dev)
     ttf_index = torch.as_tensor(ttf_index)
     n_fields = rec_ttf.shape[0] if rec_ttf.dim() == 3 else 1
-    if ttf_index.numel() and (int(ttf_index.min()) < 0
-                              or int(ttf_index.max()) >= n_fields):
+    if ttf_index.numel() and (_read_int(ttf_index.min()) < 0
+                              or _read_int(ttf_index.max()) >= n_fields):
         raise ValueError("ttf_index out of range of the field stack")
     return (rec_ttf, ttf_index.to(dev).to(torch.int64),
             torch.as_tensor(source_xy).to(dev),

@@ -35,6 +35,7 @@ from . import materials as mats
 from .ops import cuda_sweep
 from .ops._math import sqrt
 from .ops.stencils import INF
+from .utils.profiling import span, spanned
 
 __all__ = ["SolveConfig", "solve_ttf", "solve_one", "coarse_stages",
            "fine_stage_params"]
@@ -433,21 +434,26 @@ def _staged_solve(base, scx, scz, stages, seed_side, seed_sign, cfg,
 
     t0 = time.perf_counter()
     (h0, f0) = stages[0]
-    tt, bz, bx, _ = _stage_first(base, scx, scz, h0, f0, seed_side,
-                                 float(seed_sign), cfg)
+    with span("stage.first"):
+        tt, bz, bx, _ = _stage_first(base, scx, scz, h0, f0, seed_side,
+                                     float(seed_sign), cfg)
     note(1, f"patch {f0}x (half={h0})", t0)
     for k, (h, f) in enumerate(stages[1:], start=2):
         t0 = time.perf_counter()
-        tt, bz, bx, _ = _stage_next(base, scx, scz, tt, bz, bx, h, f, cfg)
+        with span("stage.next"):
+            tt, bz, bx, _ = _stage_next(base, scx, scz, tt, bz, bx, h, f,
+                                        cfg)
         note(k, f"patch {f}x (half={h})", t0)
     t0 = time.perf_counter()
-    out, info = _stage_final(base, tt, bz, bx, cfg)
+    with span("stage.final"):
+        out, info = _stage_final(base, tt, bz, bx, cfg)
     note(total, "final full-grid", t0)
     if return_info:
         return out, info
     return out
 
 
+@spanned("solve")
 def solve_ttf(model: gridlib.Model, scx, scz, subgrid_size: int = 1,
               cfg: SolveConfig = SolveConfig(), progress=None,
               return_info=False):
@@ -458,6 +464,9 @@ def solve_ttf(model: gridlib.Model, scx, scz, subgrid_size: int = 1,
     ``progress(stage=, total=, name=, seconds=)`` is called after each
     stage, with the device synchronised first.  ``return_info=True`` also
     returns the final stage's SolveInfo (phase-1 passes, converged).
+    Under a profiler the solve is the range ``alifmm.solve`` and its
+    stages ``alifmm.stage.first``, ``.next`` and ``.final``
+    (``utils/profiling.span``: no synchronisation).
     """
     s = int(subgrid_size)
     if s == 1:

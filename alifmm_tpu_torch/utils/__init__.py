@@ -1,2 +1,2 @@
 """Host-side helpers: model sanity checks, progress bars, saving and
-loading fields and rays, timing and device traces."""
+loading fields and rays, named profiler ranges and device traces."""

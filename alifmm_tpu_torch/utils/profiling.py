@@ -1,58 +1,60 @@
-"""Timing and device-trace helpers.
+"""Named ranges on the profiler's clock, and a device trace of a region.
 
-Counterpart of ``alifmm_tpu/utils/profiling.py``: ``device_timer``, a wall
-clock that waits for the device to finish what was collected inside it,
-and ``trace``, a ``torch.profiler`` trace of a region (CPU and, where the
-card is present, CUDA activities) written as a Chrome trace for Perfetto
-or ``chrome://tracing``.
+``span(name)`` marks a piece of the port's work as the range
+``alifmm.<name>`` of any running ``torch.profiler`` trace, on the same
+timeline as the card's kernels and copies; ``spanned(name)`` puts one
+around every call of a function.  With no profiler running a span is one
+check and a shared no-op context: it creates no ``RecordFunction`` and
+touches no tensor.  A span records host time only: it never synchronises
+the device and never reorders work, so what the card did during a span is
+read off the trace.  The names are ``alifmm.<layer>.<step>``; every
+blocking read from the card to the host is a range of its own whose name
+ends in ``.read``.
+
+``trace`` writes a ``torch.profiler`` trace of a region (CPU and, where
+the card is present, CUDA activities) as a Chrome trace for Perfetto or
+``chrome://tracing``; the ``alifmm.`` ranges lie in it beside the kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import tempfile
-import time
 
 import torch
 
-__all__ = ["device_timer", "trace", "Timings", "TRACE_FILE"]
+__all__ = ["span", "spanned", "trace", "PREFIX", "TRACE_FILE"]
 
+# the prefix of every range the port opens
+PREFIX = "alifmm."
 # the Chrome trace's name inside trace()'s log_dir
 TRACE_FILE = "trace.json"
 
-
-class Timings(dict):
-    """Seconds by name, added up over ``device_timer`` regions."""
-
-    def report(self):
-        return "\n".join(f"{k}: {v:.4f}s" for k, v in self.items())
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def device_timer(timings: Timings, name: str, *results):
-    """Add the wall time of the region to ``timings[name]``.  Tensors
-    passed here or to the yielded collector's ``collect`` must lie on one
-    device, which is synchronised before the clock stops (no wait for CPU
-    tensors); tensors on different devices raise ValueError."""
-    holder = list(results)
+def span(name: str):
+    """A context that is the range ``alifmm.<name>`` while a profiler
+    runs, and otherwise the one shared no-op context."""
+    if not _profiling():
+        return _OFF
+    return torch.profiler.record_function(PREFIX + name)
 
-    class _Collector:
-        @staticmethod
-        def collect(x):
-            holder.append(x)
-            return x
 
-    t0 = time.perf_counter()
-    yield _Collector
-    devices = {t.device for t in holder if isinstance(t, torch.Tensor)}
-    if len(devices) > 1:
-        raise ValueError(f"device_timer collected tensors on "
-                         f"{sorted(map(str, devices))}: one device only")
-    for dev in devices:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+def spanned(name: str):
+    """Decorator: ``span(name)`` around every call, checked at the call
+    (a decorator is applied when no profiler runs)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kw):
+            with span(name):
+                return fn(*args, **kw)
+        return wrapped
+    return deco
 
 
 @contextlib.contextmanager

@@ -14,6 +14,7 @@ fine cells, times 1e-9 relative (same float64 operations; sums may
 reassociate), lengths and reasons equal; facade time matrices 1e-8
 relative as in tests/test_torch_api.py."""
 
+import json
 import os
 import warnings
 
@@ -384,21 +385,17 @@ def test_io_round_trip(tmp_path):
         np.testing.assert_array_equal(n, ray_len)
 
 
-def test_device_timer_and_trace_on_the_cpu(tmp_path):
-    timings = profiling.Timings()
-    a = torch.ones(3)
-    for _ in range(2):
-        with profiling.device_timer(timings, "add", a) as c:
-            c.collect(a + 1)
-    assert set(timings) == {"add"} and timings["add"] > 0
-    assert timings.report().startswith("add: ")
-    with pytest.raises(ValueError, match="one device"):
-        with profiling.device_timer(timings, "mixed", a,
-                                    torch.empty(1, device="meta")):
-            pass
+def test_trace_on_the_cpu(tmp_path):
+    veln = np.zeros((4, 5))
     with profiling.trace(str(tmp_path)) as log_dir:
         torch.ones(4) @ torch.ones(4)
-    assert os.path.getsize(os.path.join(log_dir, profiling.TRACE_FILE)) > 0
+        tgrid.make_model(veln, np.ones((4, 5), np.int32), device="cpu")
+    path = os.path.join(log_dir, profiling.TRACE_FILE)
+    assert os.path.getsize(path) > 0
+    with open(path) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert {"alifmm.build", "alifmm.build.planes", "alifmm.build.tables",
+            "alifmm.build.upload"} <= names
 
 
 def test_build_hash_follows_included_headers(tmp_path):
