@@ -6,8 +6,10 @@ summaries) are plain Python fields.  A model may carry a leading source
 batch dimension on its per-cell fields -- the solver's per-source patch
 models do -- and every function here broadcasts over it.
 
-The host-side precompute of ``make_model`` (fallback slownesses and the
-ray tracer's unified curve tables) is numpy, as in the JAX package.
+``make_model``'s precompute: the ray tracer's unified curve tables are
+host numpy, as in the JAX package; the fallback slowness planes are host
+numpy for a CPU build and K6 (``ops/cuda_planes``, one launch on the
+uploaded fields) for a build on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from . import materials as mat
+from .ops import cuda_planes
 from .utils.profiling import span, spanned
 
 __all__ = ["Model", "make_model", "model_from_numpy", "resolve_device",
@@ -349,34 +352,41 @@ def model_from_numpy(fields: dict, has_stif, phase_info=None, group_info=None,
 def make_model(veln, velpn, vel_map=None, stif_den=None, group_tab=None,
                phase_tab=None, dnx=1e-3, dtype=torch.float32,
                device=None) -> Model:
-    """Assemble a Model from host arrays, with the fallback-slowness planes
-    and ray curve tables precomputed on the host in numpy.  ``device``: the
-    card by default, ``"cpu"`` on request (see ``resolve_device``).  Under
-    a profiler the build is the range ``alifmm.build``, with
-    ``alifmm.build.planes``, ``.tables`` and ``.upload`` inside it."""
+    """Assemble a Model from host arrays.  The ray curve tables are
+    precomputed on the host in numpy; the fallback slowness planes too for
+    a CPU build, while a build on the card uploads the fields and computes
+    the planes there with K6 (``cuda_planes.fallback_planes``, float64
+    arithmetic).  ``device``: the card by default, ``"cpu"`` on request
+    (see ``resolve_device``).  Under a profiler the build is the range
+    ``alifmm.build``, with ``alifmm.build.planes`` (on the card the host
+    side of one launch), ``.tables`` and ``.upload`` inside it."""
     device = resolve_device(device)
+    on_card = device.type == "cuda"
     npdt = torch.empty((), dtype=dtype).numpy().dtype
-    veln_np = np.asarray(veln).astype(npdt)
-    velpn_np = np.asarray(velpn).astype(np.int32)
+    # C order whatever the input's: K6 takes contiguous fields
+    veln_np = np.asarray(veln).astype(npdt, order="C")
+    velpn_np = np.asarray(velpn).astype(np.int32, order="C")
     if vel_map is None:
         vel_map_np = np.ones(veln_np.shape, dtype=npdt)
     else:
-        vel_map_np = np.asarray(vel_map).astype(npdt)
+        vel_map_np = np.asarray(vel_map).astype(npdt, order="C")
     has_stif = stif_den is not None
     if has_stif:
-        stif_np = np.asarray(stif_den).astype(npdt)
+        stif_np = np.asarray(stif_den).astype(npdt, order="C")
     else:
         stif_np = np.zeros(veln_np.shape + (5,), dtype=npdt)
     if group_tab is None or phase_tab is None:
         g, p = mat.default_tables()
         group_tab = g if group_tab is None else group_tab
         phase_tab = p if phase_tab is None else phase_tab
-    group_tab_np = np.asarray(group_tab).astype(npdt)
-    phase_tab_np = np.asarray(phase_tab).astype(npdt)
-    with span("build.planes"):
-        fb = _np_fallback_slowness_planes(
-            veln_np, velpn_np, vel_map_np, stif_np, group_tab_np, has_stif
-        ).astype(npdt)
+    group_tab_np = np.asarray(group_tab).astype(npdt, order="C")
+    phase_tab_np = np.asarray(phase_tab).astype(npdt, order="C")
+    fb = None
+    if not on_card:
+        with span("build.planes"):
+            fb = _np_fallback_slowness_planes(
+                veln_np, velpn_np, vel_map_np, stif_np, group_tab_np, has_stif
+            ).astype(npdt)
     with span("build.tables"):
         curves, skew, curve_idx = _ray_curve_tables(
             velpn_np, stif_np, group_tab_np, phase_tab_np, has_stif
@@ -394,5 +404,12 @@ def make_model(veln, velpn, vel_map=None, stif_den=None, group_tab=None,
         dnx=np.asarray(dnx, dtype=npdt), ray_curves=curves,
         ray_curve_idx=curve_idx, ray_skew=skew,
     )
-    return model_from_numpy(fields, has_stif, device=device, dtype=dtype,
-                            **info)
+    model = model_from_numpy(fields, has_stif, device=device, dtype=dtype,
+                             **info)
+    if on_card:
+        with span("build.planes"):
+            fb = cuda_planes.fallback_planes(model.veln, model.velpn,
+                                             model.vel_map, model.stif,
+                                             model.group_tab, has_stif)
+        model = dataclasses.replace(model, fallback_slowness=fb)
+    return model

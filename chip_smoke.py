@@ -11,8 +11,9 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
 2. builds the kernels from ``alifmm_tpu_torch/csrc`` with nvcc, one
    compiler per source, all at once: the sweep kernel K1 and the slab
    sweep K5 (``sweep.cu``), K1's other forms (``sweep_forms.cu``),
-   the ray kernels K2 and K3 (``rays.cu``) and the descent march K4
-   (``descent.cu``); prints ptxas' registers and spills per kernel;
+   the ray kernels K2 and K3 (``rays.cu``), the descent march K4
+   (``descent.cu``) and the model build's planes K6 (``planes.cu``);
+   prints ptxas' registers and spills per kernel;
 3. holds K1 against its plain PyTorch twin on the card, in float64 and
    float32: a min pass and a replace pass on each case of ``PASS_CASES``
    (48 x 56, per-source weld patches of 109 x 109 and 79 x 79, narrow
@@ -243,7 +244,18 @@ Phases (any failure exits non-zero, with no fallback to the CPU):
    fields max abs 0 from the direct ones; (15d) homogeneous qSH against
    its closed-form elliptical
    first arrival, within the JAX package's own error on the same model
-   (``tests/qsh_records.py``) plus a float32 margin.
+   (``tests/qsh_records.py``) plus a float32 margin;
+16. K6, the model build's fallback slowness planes (``csrc/planes.cu``):
+   against its twin (``grid._np_fallback_slowness_planes`` in float64 on
+   the same inputs) on seed 0's weld, the table case of
+   tests/test_torch_model.py and a mixed 48 x 56 case, in float32 (within
+   ``PLANES_MAX_ULP`` float32 ulps) and float64 (``PLANES_RTOL_F64``);
+   ``make_model`` on the card in both types (one launch a build, the
+   other fields equal to the host upload) and on Fortran-ordered and
+   transposed inputs; then timed at 424 x 500 (the profiler's device
+   time, and CUDA events over 100 launches through the wrapper) beside its
+   bound (the larger of its bytes and its float64 operations) and the
+   host numpy planes it replaces.
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``.
@@ -255,6 +267,10 @@ weld on 2 x 2 blocks against one device, ``ALI_FMM(ttf_mode="grid",
 grid_mesh=...)`` at s = 9 against the facade without a mesh, and the qSV
 weld at s = 9 on one device and on four z slabs; it prints the card line
 and one JSON object of the results.
+
+``python3 chip_smoke.py --planes`` runs phase 16 alone in about a minute,
+with K6's build and ptxas' report; it prints the card line and K6's
+object of the kernels line.
 
 ``python3 chip_smoke.py --k4`` runs K4 alone in about a minute (K1 solves
 its fields): on the weld's and the FMC's fields and on the slow band,
@@ -296,6 +312,18 @@ OPS_PHASE_EIGEN, OPS_PHASE_LOOKUP, OPS_PHASE_CONSTANT = 85, 30, 3
 # (the FD-only operator's whole update; the FD-free one skips it)
 OPS_FD = 8 * 30 + 8 * 20
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# K6's float64 operations a point and wave angle, costed as above (a
+# floor-mod, a divide or a square root about 10, cos and sin about 20, tan
+# about 40, atan about 30): at a stiffness point the Christoffel solve
+# (a floor-mod, the near-axis test, tan, B's divide, the root of the
+# discriminant, atan's divide, atan, a floor-mod, cos and sin of the
+# phase, the root and divide of the velocity, cos of the skew and its
+# divide, about 30 multiplies and adds) about 250, at a table point the
+# interpolation about 10; either way two floor-mods of the angle and the
+# reciprocal about 30 more.  The H100's non-tensor fp64 peak (SXM data
+# sheet, 700 W).
+OPS_PLANES_CHRISTOFFEL, OPS_PLANES_TABLE = 280, 40
+PEAK_FP64 = 33.5e12
 # tests/test_analytic_truth.py: isotropic envelope bounds (max, mean)
 ANALYTIC_MAX, ANALYTIC_MEAN = 2.4e-2, 1.5e-2
 # production budgets and march knobs of the weld workload
@@ -1050,10 +1078,11 @@ def run_slice(inputs, progress=None, cfg=None):
 def reset_counts():
     """Set every kernel's launch count and every plain twin's count to 0."""
     from alifmm_tpu_torch import rays
-    from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep, sweep
+    from alifmm_tpu_torch.ops import cuda_planes, cuda_rays, cuda_sweep, sweep
 
     cuda_sweep.LAUNCHES = 0
     cuda_sweep.SLAB_LAUNCHES = 0
+    cuda_planes.LAUNCHES = 0
     for name in cuda_sweep.FORM_LAUNCHES:
         cuda_sweep.FORM_LAUNCHES[name] = 0
     sweep.CALLS = 0
@@ -1064,10 +1093,11 @@ def reset_counts():
 
 def read_counts():
     from alifmm_tpu_torch import rays
-    from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep, sweep
+    from alifmm_tpu_torch.ops import cuda_planes, cuda_rays, cuda_sweep, sweep
 
     return dict(sweep_pass=cuda_sweep.LAUNCHES,
                 slab_sweep=cuda_sweep.SLAB_LAUNCHES, plain_passes=sweep.CALLS,
+                planes=cuda_planes.LAUNCHES,
                 plain_steps=rays.PLAIN_STEPS, **cuda_rays.LAUNCHES,
                 **{f"k1_{k}": v for k, v in cuda_sweep.FORM_LAUNCHES.items()})
 
@@ -5038,6 +5068,321 @@ def phase_qsh_homogeneous(device):
     return out
 
 
+
+# K6 (csrc/planes.cu) against its twin, grid._np_fallback_slowness_planes
+# run in float64 on the float64 casts of the same inputs: float32 planes
+# within PLANES_MAX_ULP float32 ulps of the twin rounded to float32 (only
+# tan, atan, cos and sin differ from numpy's, each by an ulp or two of
+# float64), float64 planes within PLANES_RTOL_F64.
+PLANES_MAX_ULP = 1
+PLANES_RTOL_F64 = 1e-12
+PLANES_CASES = ("weld", "tables", "random")
+
+
+def _two_table_materials():
+    """Group tables of two anisotropic table materials (columns 1 and 2,
+    column 0 the angle), from stiffness in Pa, as tests/test_torch_model.py
+    builds its table case."""
+    from alifmm_tpu_torch import materials
+
+    g = np.zeros((361, 3))
+    g[:, 0] = np.arange(361)
+    for m, c in enumerate([(263e9, 145e9, 216e9, 129e9, 7800.0),
+                           (240e9, 120e9, 250e9, 110e9, 7600.0)]):
+        g[:, m + 1] = materials.generate_group_vel_curve(*c)
+    return g
+
+
+def planes_case(name):
+    """Host inputs (veln, velpn, vel_map, stif, group_tab, has_stif) of
+    K6's cases: ``weld`` seed 0's 424 x 500 weld with the default tables
+    (as ``weld_inputs`` builds it); ``tables`` the table case of
+    tests/test_torch_model.py (non-integer orientations, two anisotropic
+    table materials, no stiffness); ``random`` 48 x 56 with stiffness and
+    table points mixed, orientations of every kind (non-integer, integer,
+    half-integer so that round(45 - veln) ties, and within 0.01 degrees
+    of an axis, where the Christoffel solve takes its axis branch) and
+    stiffness rows varied point by point."""
+    from alifmm_tpu_torch import materials, weld_data
+
+    if name == "weld":
+        veln, velpn, vel_map, stif = weld_data.weld_model_arrays(0)
+        return veln, velpn, vel_map, stif, materials.default_tables()[0], True
+    if name == "tables":
+        rng = np.random.default_rng(5)
+        Z, X = 18, 22
+        return (rng.uniform(0, 180, (Z, X)), rng.integers(1, 3, (Z, X)),
+                rng.uniform(0.8, 1.2, (Z, X)), np.zeros((Z, X, 5)),
+                _two_table_materials(), False)
+    rng = np.random.default_rng(11)
+    Z, X = 48, 56
+    kind = rng.integers(0, 4, (Z, X))
+    veln = np.select(
+        [kind == 0, kind == 1, kind == 2],
+        [rng.uniform(-400.0, 400.0, (Z, X)),
+         rng.integers(-360, 361, (Z, X)).astype(float),
+         rng.integers(-720, 721, (Z, X)) * 0.5],
+        rng.integers(-8, 9, (Z, X)) * 45.0
+        + rng.uniform(-0.012, 0.012, (Z, X)))
+    velpn = rng.integers(0, 3, (Z, X))
+    vel_map = np.where(velpn == 0, 1.0, rng.uniform(0.8, 1.2, (Z, X)))
+    row = np.array([263000.0, 148000.0, 216000.0, 129000.0, 8100.0])
+    stif = row * rng.uniform(0.9, 1.1, (Z, X, 5))
+    return veln, velpn, vel_map, stif, _two_table_materials(), True
+
+
+def planes_inputs(case, dtype, twin=None):
+    """``case``'s inputs cast as make_model casts them (floats to
+    ``dtype``, velpn to int32), and the twin's planes: the numpy function
+    (``twin``, by default ``grid._np_fallback_slowness_planes``) in float64
+    on the float64 casts of those inputs."""
+    from alifmm_tpu_torch import grid
+
+    twin = grid._np_fallback_slowness_planes if twin is None else twin
+    veln, velpn, vel_map, stif, tab, has_stif = case
+    npdt = torch.empty((), dtype=dtype).numpy().dtype
+    host = (np.asarray(veln).astype(npdt), np.asarray(velpn).astype(np.int32),
+            np.asarray(vel_map).astype(npdt), np.asarray(stif).astype(npdt),
+            np.asarray(tab).astype(npdt))
+    want = twin(
+        *[a.astype(np.float64) if a.dtype != np.int32 else a for a in host],
+        has_stif)
+    return host, want
+
+
+def planes_on_card(host, has_stif, device):
+    """K6 on ``host`` (make_model's casts) uploaded to ``device``."""
+    from alifmm_tpu_torch.ops import cuda_planes
+
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in host]
+    return cuda_planes.fallback_planes(*args, has_stif)
+
+
+def ulp_gap(got, want):
+    """Largest distance in float32 ulps between float32 ``got`` and the
+    float64 ``want`` rounded to float32 (both of one sign everywhere)."""
+    want32 = np.asarray(want, np.float64).astype(np.float32)
+    got = np.asarray(got, np.float32)
+    check(bool(np.all(np.signbit(got) == np.signbit(want32))),
+          "K6 and its twin differ in sign")
+    gi = got.view(np.int32).astype(np.int64)
+    wi = want32.view(np.int32).astype(np.int64)
+    return int(np.abs(gi - wi).max())
+
+
+def check_planes(name, dtype, device):
+    """K6 on ``PLANES_CASES[name]`` in ``dtype`` against its twin; returns
+    the largest float32 ulp gap (float32) or relative error (float64)."""
+    *case, has_stif = planes_case(name)
+    host, want = planes_inputs((*case, has_stif), dtype)
+    got = planes_on_card(host, has_stif, device).cpu().numpy()
+    check(got.shape == want.shape, f"K6 {name}: shape {got.shape} against "
+          f"{want.shape}")
+    check(bool(np.isfinite(got).all()), f"K6 {name}: not finite")
+    if dtype == torch.float32:
+        gap = ulp_gap(got, want)
+        check(gap <= PLANES_MAX_ULP, f"K6 {name} float32: {gap} ulps from "
+              f"the float64 twin")
+        return dict(max_ulp=gap,
+                    off_share=float(np.mean(got != want.astype(np.float32))))
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(rel <= PLANES_RTOL_F64, f"K6 {name} float64: {rel:.3e} relative")
+    return dict(max_rel=rel)
+
+
+def check_make_model_planes(dtype, device):
+    """make_model on the card: one K6 launch a build, its planes equal to
+    K6 on the model's own fields, and every other field bit-equal to a
+    model_from_numpy upload of the CPU build's host fields.  Returns the
+    build's seconds on the host clock."""
+    from alifmm_tpu_torch import grid, weld_data
+    from alifmm_tpu_torch.ops import cuda_planes
+
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    args = (veln, velpn, vel_map, stif, None, None, dnx)
+    n0 = cuda_planes.LAUNCHES
+    secs, model = time_host(lambda: grid.make_model(*args, dtype=dtype,
+                                                    device=device))
+    check(cuda_planes.LAUNCHES == n0 + 1, f"make_model ({dtype}): "
+          f"{cuda_planes.LAUNCHES - n0} K6 launches, not 1")
+    again = cuda_planes.fallback_planes(model.veln, model.velpn, model.vel_map,
+                                        model.stif, model.group_tab,
+                                        model.has_stif)
+    check(torch.equal(model.fallback_slowness, again),
+          f"make_model ({dtype}): planes differ from K6 on its fields")
+    cpu = grid.make_model(*args, dtype=dtype, device="cpu")
+    fields = {name: (None if getattr(cpu, name) is None
+                     else getattr(cpu, name).numpy())
+              for name in grid.TENSOR_FIELDS}
+    ref = grid.model_from_numpy(fields, cpu.has_stif, cpu.phase_info,
+                                cpu.group_info, cpu.ray_info, device=device,
+                                dtype=dtype, skew_info=cpu.skew_info)
+    for name in grid.TENSOR_FIELDS:
+        if name == "fallback_slowness":
+            continue
+        a, b = getattr(model, name), getattr(ref, name)
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"make_model ({dtype}): {name} differs from the host upload")
+    for name in ("has_stif", "phase_info", "group_info", "ray_info",
+                 "skew_info"):
+        check(getattr(model, name) == getattr(ref, name),
+              f"make_model ({dtype}): {name} differs from the CPU build")
+    _, want = planes_inputs((veln, velpn, vel_map, stif,
+                             np.asarray(cpu.group_tab.double()), True), dtype)
+    got = model.fallback_slowness.cpu().numpy()
+    if dtype == torch.float32:
+        check(ulp_gap(got, want) <= PLANES_MAX_ULP,
+              "make_model float32: planes beyond an ulp of the twin")
+    else:
+        check(bool(np.all(np.abs(got - want) <= PLANES_RTOL_F64
+                          * np.abs(want))),
+              "make_model float64: planes beyond the twin's tolerance")
+    return secs / 1e3
+
+
+def planes_bytes(host, has_stif):
+    """Bytes K6 must move for ``host``: veln, velpn and vel_map read and
+    four planes written at every point, the stiffness row read at the
+    points that take the Christoffel solve; and the dense count with every
+    stiffness row read."""
+    veln, velpn = host[0], host[1]
+    n, es = veln.size, veln.itemsize
+    base = n * (2 * es + 4 + 4 * es)
+    chr_points = int(np.count_nonzero(velpn == 0)) if has_stif else 0
+    return base + chr_points * 5 * es, base + (n * 5 * es if has_stif else 0)
+
+
+def check_make_model_layouts(device):
+    """make_model on the card takes inputs in any memory order: the weld's
+    maps and tables in Fortran order, and transposed views of them, give
+    the model of the C-ordered inputs, field for field."""
+    from alifmm_tpu_torch import grid, materials, weld_data
+
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    g, p = materials.default_tables()
+    want = grid.make_model(veln, velpn, vel_map, stif, g, p, dnx,
+                           device=device)
+    layouts = dict(
+        fortran=[np.asfortranarray(a)
+                 for a in (veln, velpn, vel_map, stif, g, p)],
+        transposed=[np.ascontiguousarray(np.moveaxis(a, 0, 1)).swapaxes(0, 1)
+                    for a in (veln, velpn, vel_map, stif, g, p)])
+    for name, args in layouts.items():
+        check(not args[0].flags.c_contiguous, f"{name}: veln is C-ordered")
+        got = grid.make_model(*args, dnx, device=device)
+        for field in grid.TENSOR_FIELDS:
+            a, b = getattr(got, field), getattr(want, field)
+            check(torch.equal(a, b), f"make_model on {name} inputs: {field} "
+                  f"differs from the C-ordered build")
+    return list(layouts)
+
+
+def planes_ops(host, has_stif):
+    """Float64 operations K6 computes for ``host``: four wave angles at
+    every point, at the Christoffel cost at the stiffness points and the
+    table cost elsewhere."""
+    veln, velpn = host[0], host[1]
+    chr_points = int(np.count_nonzero(velpn == 0)) if has_stif else 0
+    return 4 * (chr_points * OPS_PLANES_CHRISTOFFEL
+                + (veln.size - chr_points) * OPS_PLANES_TABLE)
+
+
+def time_planes(host, has_stif, device, n=100):
+    """K6 timed warm at ``host``'s shape through its wrapper: CUDA events
+    over n launches into one output (the wrapper's checks on the host
+    space the launches out, so this is the larger of the two costs), and
+    the kernel's mean device time from a profiler trace of n more (None if
+    the trace holds no device time)."""
+    from alifmm_tpu_torch.ops import cuda_planes
+
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in host]
+    out = torch.empty((4, *args[0].shape), dtype=args[0].dtype, device=device)
+
+    def launch():
+        cuda_planes.fallback_planes(*args, has_stif, out=out)
+
+    ms = time_events(launch, n)
+    prof_us = None
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            launch()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if "planes_kernel" in ev.key and ev.count:
+            total = (getattr(ev, "device_time_total", None)
+                     or getattr(ev, "cuda_time_total", 0))
+            prof_us = total / ev.count if total else None
+    torch.cuda.synchronize()
+    return ms, prof_us
+
+
+def phase_planes(device):
+    """K6: against its twin on ``PLANES_CASES`` in float32 and float64,
+    make_model on the card (one launch a build, the other fields equal to
+    the host upload; inputs in any memory order), then timed at 424 x 500
+    in both types beside its bound and the host numpy planes it replaces.
+    Returns the kernels line's figures."""
+    from alifmm_tpu_torch import grid
+
+    out = dict(cases={})
+    for name in PLANES_CASES:
+        for dtype in (torch.float32, torch.float64):
+            r = check_planes(name, dtype, device)
+            out["cases"][f"{name} {str(dtype)[6:]}"] = r
+            log(f"  K6 {name} {str(dtype)[6:]}: {r}")
+    out["make_model_s"] = {}
+    for dtype in (torch.float32, torch.float64):
+        secs = check_make_model_planes(dtype, device)
+        out["make_model_s"][str(dtype)[6:]] = secs
+        log(f"  make_model {str(dtype)[6:]} on the card: one K6 launch, the "
+            f"other fields equal to the host upload; {secs:.4f} s")
+    layouts = check_make_model_layouts(device)
+    log(f"  make_model on {' and '.join(layouts)} inputs equals the "
+        f"C-ordered build")
+    *case, has_stif = planes_case("weld")
+    host32, _ = planes_inputs((*case, has_stif), torch.float32)
+    t_np = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        grid._np_fallback_slowness_planes(*host32, has_stif).astype(np.float32)
+        t_np.append(time.perf_counter() - t0)
+    out["host_numpy_ms"] = float(np.median(t_np)) * 1e3
+    log(f"  the host numpy planes K6 replaces (float32 inputs, as make_model "
+        f"ran them): median of 5 {out['host_numpy_ms']:.3f} ms")
+    out["timed"] = {}
+    for dtype in (torch.float32, torch.float64):
+        host, _ = planes_inputs((*case, has_stif), dtype)
+        events_ms, prof_us = time_planes(host, has_stif, device)
+        dev_ms = prof_us / 1e3 if prof_us else None
+        ms = dev_ms or events_ms
+        need, dense = planes_bytes(host, has_stif)
+        ops = planes_ops(host, has_stif)
+        bytes_ms, ops_ms = need / PEAK_BYTES * 1e3, ops / PEAK_FP64 * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        key = str(dtype)[6:]
+        out["timed"][key] = dict(
+            ms=ms, timed_by="profiler" if dev_ms else "events",
+            events_ms=events_ms, profiler_ms=dev_ms, bound_ms=bound_ms,
+            bound_by="fp64" if ops_ms > bytes_ms else "bytes",
+            bytes_ms=bytes_ms, ops_ms=ops_ms, ops=ops,
+            bytes=need, bytes_per_point=need / host[0].size,
+            dense_bytes_per_point=dense / host[0].size,
+            dense_bound_ms=dense / PEAK_BYTES * 1e3,
+            share=bound_ms / ms)
+        log(f"  K6 {key} at 424 x 500: "
+            f"{prof_us if prof_us is None else round(prof_us, 2)} us a launch "
+            f"(profiler), {events_ms * 1e3:.2f} us from launch to launch "
+            f"through the wrapper (events over 100); bound "
+            f"{bound_ms * 1e3:.2f} us "
+            f"({out['timed'][key]['bound_by']}: fp64 {ops / 1e6:.1f} M "
+            f"operations {ops_ms * 1e3:.2f} us; bytes "
+            f"{need / host[0].size:.1f} B a point {bytes_ms * 1e3:.2f} us, "
+            f"dense {dense / host[0].size:.0f} B "
+            f"{dense / PEAK_BYTES * 1e6:.2f} us), share {bound_ms / ms:.4f}")
+    return out
+
+
 SCORER_NAMES = {0: "simpson3", 1: "simpson5", 2: "walk", 3: "exact"}
 
 
@@ -5074,10 +5419,10 @@ def build_kernels(after_sweep=None):
     """Compile every kernel source, one nvcc per source, all at once;
     ``after_sweep`` is called once ``sweep.cu`` is built, the others
     still compiling.  Returns ptxas' registers and spills by kernel."""
-    from alifmm_tpu_torch.ops import cuda_rays, cuda_sweep
+    from alifmm_tpu_torch.ops import cuda_planes, cuda_rays, cuda_sweep
 
     builds = (cuda_sweep.build, cuda_sweep.build_forms, cuda_rays.build,
-              cuda_rays.build_descent)
+              cuda_rays.build_descent, cuda_planes.build)
     t0 = time.perf_counter()
 
     def timed(build):
@@ -5093,14 +5438,15 @@ def build_kernels(after_sweep=None):
             after_sweep()
         secs = [job.result() for job in jobs]
     log(f"[2] K1 and K5 (sweep.cu), K1's other forms (sweep_forms.cu), K2 "
-        f"and K3 (rays.cu) and K4 (descent.cu) built "
+        f"and K3 (rays.cu), K4 (descent.cu) and K6 (planes.cu) built "
         f"in {time.perf_counter() - t0:.2f} s, at once (each: "
         + ", ".join(f"{n} {t:.2f} s" for n, t in
                     zip(("sweep.cu", "sweep_forms.cu", "rays.cu",
-                         "descent.cu"), secs)) + ")")
+                         "descent.cu", "planes.cu"), secs)) + ")")
     regs = {}
     for report in (cuda_sweep.BUILD_LOG, cuda_sweep.FORMS_BUILD_LOG,
-                   cuda_rays.BUILD_LOG, cuda_rays.DESCENT_BUILD_LOG):
+                   cuda_rays.BUILD_LOG, cuda_rays.DESCENT_BUILD_LOG,
+                   cuda_planes.BUILD_LOG):
         regs.update(ptxas_summary(report))
     for name, (n, spill) in regs.items():
         log(f"    ptxas: {name[:120]}: {n} registers, {spill} bytes of "
@@ -5348,6 +5694,9 @@ def main():
     log("[15d] homogeneous qSH against its closed-form first arrival")
     qsh_homog = phase_qsh_homogeneous(device)
     log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
+    log("[16] K6 (the model build's fallback planes) against its twin, "
+        "through make_model, and timed beside its bound")
+    planes = phase_planes(device)
 
     check("jax" not in sys.modules, "jax was imported")
     kernels = [{
@@ -5505,11 +5854,75 @@ def main():
         "registers": {k: v[0] for k, v in regs.items()
                       if "slab_sweep_kernel" in k},
     })
+    kernels.append(planes_entry(planes, counts["planes"], regs))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def planes_entry(planes, launches, regs):
+    """K6's object in the kernels line: the float32 launch at 424 x 500 as
+    ``ms``, the rest of ``phase_planes``' figures beside it."""
+    t = planes["timed"]["float32"]
+    return {
+        "name": "K6 fallback planes",
+        "route": "cuda",
+        "source": "alifmm_tpu_torch/csrc/planes.cu",
+        "replaces": "alifmm_tpu_torch/grid.py _np_fallback_slowness_planes "
+                    "(host numpy; alifmm_tpu/grid.py's make_model likewise)",
+        **planes,
+        "launches": launches,
+        "max_ulp_f32": max(r["max_ulp"] for r in planes["cases"].values()
+                           if "max_ulp" in r),
+        "max_rel_err_f64": max(r["max_rel"] for r in planes["cases"].values()
+                               if "max_rel" in r),
+        **{k: t[k] for k in ("ms", "bound_ms", "bound_by", "share")},
+        "plain_ms": planes["host_numpy_ms"],
+        "library_ms": None,
+        "registers": {k: v[0] for k, v in regs.items()
+                      if "planes_kernel" in k},
+    }
+
+
+def main_planes():
+    """``python3 chip_smoke.py --planes``: K6 alone (phase 16), in about a
+    minute.  Builds ``planes.cu`` (ptxas' report), then holds K6 to its
+    twin, checks make_model on the card and times K6; prints the card line
+    and K6's object of the kernels line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from alifmm_tpu_torch.ops import cuda_planes
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(f"[1] device {torch.cuda.get_device_name(0)} ({card}); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    cuda_planes.build(verbose=True)
+    log(f"[2] K6 (planes.cu) built in {time.perf_counter() - t0:.2f} s")
+    regs = ptxas_summary(cuda_planes.BUILD_LOG)
+    for name, (n, spill) in regs.items():
+        log(f"    ptxas: {name[:120]}: {n} registers, {spill} bytes of "
+            f"spill")
+    from alifmm_tpu_torch import grid, weld_data
+
+    reset_counts()
+    veln, velpn, vel_map, stif, sx, sy, pairs, dnx = weld_data.workload(0)
+    grid.make_model(veln, velpn, vel_map, stif, None, None, dnx,
+                    device=device)
+    counts = read_counts()
+    check(counts["planes"] == 1, f"one make_model on the card launched K6 "
+          f"{counts['planes']} times, not once")
+    log("[16] K6 against its twin, through make_model, and timed")
+    planes = phase_planes(device)
+    check("jax" not in sys.modules, "jax was imported")
+    print(card, flush=True)
+    print(json.dumps(planes_entry(planes, counts["planes"], regs)),
+          flush=True)
     return 0
 
 
@@ -5736,5 +6149,5 @@ def main_halo_fine():
 
 if __name__ == "__main__":
     sys.exit({"--k4": main_k4, "--k1-twin": main_k1_twin,
-              "--halo-fine": main_halo_fine}.get(
+              "--halo-fine": main_halo_fine, "--planes": main_planes}.get(
         " ".join(sys.argv[1:]), main)())
