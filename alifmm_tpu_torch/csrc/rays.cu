@@ -121,12 +121,11 @@ struct Axis {
 // sorted order; zero-length intervals add exact zeros and are skipped.
 template <typename T, int MK>
 __device__ T seg_exact(const Mat<T>& m, T x1, T y1, T x2, T y2, int max_cross) {
+  // differenced before scaling, as the twin: dx is 0 only where x2 == x1
+  T dx = (x2 - x1) / m.s;
+  T dy = (y2 - y1) / m.s;
   x1 = x1 / m.s;
-  x2 = x2 / m.s;
   y1 = y1 / m.s;
-  y2 = y2 / m.s;
-  T dx = x2 - x1;
-  T dy = y2 - y1;
   T angle = angle_deg(dx, dy);
   T length = m_sqrt(dx * dx + dy * dy);
   T scale = m.dnx * length;

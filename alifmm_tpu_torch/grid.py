@@ -102,12 +102,13 @@ def refine_nearest_3d(arr, scale: int):
     return arr[..., iz, :, :][..., ix, :]
 
 
+@spanned("refine")
 def refine_model(model: Model, scale: int) -> Model:
     """Nearest-neighbour refinement of a whole model by odd ``scale``, on
     its device, with the reference's dtype quirks: ``veln`` through int32,
     ``velpn`` int; ``dnx / scale``; the fallback slowness planes rebuilt
     on the refined fields, the curve indices refined, the curve tables
-    kept."""
+    kept.  Under a profiler the range ``alifmm.refine``."""
     if scale == 1:
         return model
     veln = refine_nearest(model.veln, scale, torch.int32).to(model.dtype)

@@ -121,11 +121,11 @@ def _base_stages(model, subgrid_size, cfg, stages, seed_side):
         if stages is None:
             stages = solverlib.coarse_stages(cfg)
             seed_side = solverlib._COARSE_SEED_SIDE
-        return base, stages, seed_side, solverlib._COARSE_SEED_SIGN
+        return base, stages, seed_side
     base = gridlib.refine_model(model, subgrid_size)
     if stages is None:
         stages, seed_side = solverlib.fine_stage_params(subgrid_size)
-    return base, stages, seed_side, solverlib._FINE_SEED_SIGN
+    return base, stages, seed_side
 
 
 def _note(progress, device, stage, total, name, t0):
@@ -139,15 +139,14 @@ def _note(progress, device, stage, total, name, t0):
              seconds=time.perf_counter() - t0)
 
 
-def _patch_stages(base, scx, scz, stages, seed_side, seed_sign, cfg,
-                  progress=None):
+def _patch_stages(base, scx, scz, stages, seed_side, cfg, progress=None):
     """The telescoped patch stages: the last stage's (tt, bz, bx);
     ``progress`` is told of each."""
     total = len(stages) + 1
     t0 = time.perf_counter()
     (h0, f0) = stages[0]
     tt, bz, bx, _ = solverlib._stage_first(base, scx, scz, h0, f0, seed_side,
-                                           float(seed_sign), cfg)
+                                           solverlib._SEED_SIGN, cfg)
     _note(progress, base.device, 1, total, f"patch {f0}x (half={h0})", t0)
     for k, (h, f) in enumerate(stages[1:], start=2):
         t0 = time.perf_counter()
@@ -177,7 +176,7 @@ def solve_ttf_sharded(model: gridlib.Model, scx, scz, mesh: Mesh,
     if cfg.multigrid:
         raise NotImplementedError("the multigrid start of a source-sharded "
                                   "solve (solver.solve_ttf runs it)")
-    base, stages, seed_side, seed_sign = _base_stages(
+    base, stages, seed_side = _base_stages(
         model, int(subgrid_size), cfg, stages, seed_side)
     models, parts = {}, []
     for sl, dev in _chunks(len(scx), mesh, axis, group):
@@ -187,7 +186,7 @@ def solve_ttf_sharded(model: gridlib.Model, scx, scz, mesh: Mesh,
         cx = torch.as_tensor(scx[sl]).to(m.dtype).to(dev)
         cz = torch.as_tensor(scz[sl]).to(m.dtype).to(dev)
         tt, fixed = solverlib._final_inputs(m, *_patch_stages(
-            m, cx, cz, stages, seed_side, seed_sign, cfg))
+            m, cx, cz, stages, seed_side, cfg))
         parts.append((tt, fixed, m))
     packs = {dev: cuda_sweep.pack_model(m) for dev, m in models.items()
              if dev.type == "cuda"}
@@ -571,13 +570,12 @@ def solve_ttf_halo(model: gridlib.Model, scx, scz, mesh: Mesh, axis="gz",
     total=, name=, seconds=)`` is called after each stage, as
     ``solver.solve_ttf`` calls it.  Returns (n_src, Z, X) [and the final
     stage's SolveInfo with ``return_info=True``]."""
-    base, stages, seed_side, seed_sign = _base_stages(
+    base, stages, seed_side = _base_stages(
         model, int(subgrid_size), cfg, stages, seed_side)
     scx = torch.as_tensor(scx, device=base.device).to(base.dtype)
     scz = torch.as_tensor(scz, device=base.device).to(base.dtype)
     Z, X = base.shape
-    last = _patch_stages(base, scx, scz, stages, seed_side, seed_sign, cfg,
-                         progress)
+    last = _patch_stages(base, scx, scz, stages, seed_side, cfg, progress)
     t0 = time.perf_counter()
     tt0, fixed = solverlib._final_inputs(base, *last)
     axes = (axis,) if isinstance(axis, str) else tuple(axis)

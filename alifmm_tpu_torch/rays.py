@@ -204,10 +204,12 @@ def segment_time(model: gridlib.Model, mat_flat, x1, y1, x2, y2,
     Z, X = model.shape
     dt = model.dtype
     s = _scalar(model, subgrid_size)
-    x1, x2 = x1 / s, x2 / s
-    y1, y2 = y1 / s, y2 / s
-    dx = x2 - x1
-    dy = y2 - y1
+    # differenced before scaling: dx is 0 only where x2 equals x1 (in
+    # float32, x1 / s and x2 / s of points an ulp apart can be equal, and
+    # a near-vertical segment would then take the angle of a horizontal one)
+    dx = (x2 - x1) / s
+    dy = (y2 - y1) / s
+    x1, y1 = x1 / s, y1 / s
     dx_zero = dx == 0
     dy_zero = dy == 0
     angle = _angle(dx, dy)

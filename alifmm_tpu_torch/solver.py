@@ -150,14 +150,21 @@ def _analytic_seed(patch: gridlib.Model, base: gridlib.Model, isz, isx,
     """Straight-ray times through the homogeneous source cell on each
     source's innermost patch.  ``(src_z, src_x)``: (B,) source positions on
     the patch grid; materials come from the base-grid source cell
-    ``(isz, isx)``.  Returns (tt, fixed), both (B, Zp, Xp)."""
+    ``(isz, isx)``.  Returns (tt, fixed), both (B, Zp, Xp).
+
+    The times are worked out in float64 whatever the model's type, then
+    rounded to it: in float32 the closed-form group velocity cancels near
+    180 degrees and comes out negative (effective angles in 179.97-179.99
+    for the weld's stiffness row), and a seed point there is a negative
+    time that the sweeps then spread."""
     dtype = base.dtype
+    wide = torch.float64
     Z, X = patch.shape
     dev = base.device
-    dz = (torch.arange(Z, dtype=dtype, device=dev)[None, :, None]
-          - src_z.to(dtype)[:, None, None])
-    dx = (torch.arange(X, dtype=dtype, device=dev)[None, None, :]
-          - src_x.to(dtype)[:, None, None])
+    dz = (torch.arange(Z, dtype=wide, device=dev)[None, :, None]
+          - src_z.to(wide)[:, None, None])
+    dx = (torch.arange(X, dtype=wide, device=dev)[None, None, :]
+          - src_x.to(wide)[:, None, None])
     dz, dx = torch.broadcast_tensors(dz, dx)
     in_seed = (torch.abs(dz) <= side) & (torch.abs(dx) <= side)
 
@@ -166,22 +173,23 @@ def _analytic_seed(patch: gridlib.Model, base: gridlib.Model, isz, isx,
         dx_zero, 90.0,
         torch.atan(dz / torch.where(dx_zero, 1.0, dx)) * (180.0 / math.pi))
     isz, isx = isz.long(), isx.long()
-    v_src = base.veln[isz, isx][:, None, None]
+    v_src = base.veln[isz, isx][:, None, None].to(wide)
     p_src = base.velpn[isz, isx][:, None, None]
-    m_src = base.vel_map[isz, isx][:, None, None]
-    s_src = base.stif[isz, isx][:, None, None, :]
+    m_src = base.vel_map[isz, isx][:, None, None].to(wide)
+    s_src = base.stif[isz, isx][:, None, None, :].to(wide)
     eff = torch.remainder(v_src + seed_sign * angle, 180.0)
-    v_tab = mats.interp_table(patch.group_tab, eff, p_src.expand(dz.shape),
-                              m_src.expand(dz.shape), info=patch.group_info)
+    v_tab = mats.interp_table(patch.group_tab.to(wide), eff,
+                              p_src.expand(dz.shape), m_src.expand(dz.shape),
+                              info=patch.group_info)
     if patch.has_stif:
         v_chr = mats.group_velocity_christoffel(
             eff, *[s_src[..., c] for c in range(5)], m_src)
         vel = torch.where(p_src != 0, v_tab, v_chr)
     else:
         vel = v_tab
-    tt = patch.dnx * sqrt(dz * dz + dx * dx) / vel
+    tt = patch.dnx.to(wide) * sqrt(dz * dz + dx * dx) / vel
     tt = torch.where(in_seed, tt, INF)
-    return tt, in_seed
+    return tt.to(dtype), in_seed
 
 
 def _edge_time(tt, bz, bx, prev_factor, base_shape):
@@ -226,10 +234,15 @@ def _inject(prev_tt, prev_bz, prev_bx, prev_factor, cur_shape, cur_bz, cur_bx,
 
 
 # Coarse-path constants: windows of +-2/+-6/+-13 cells at 27x/9x/3x; the
-# analytic seed out to +-13 fine points; effective seed angle veln - angle.
+# analytic seed out to +-13 fine points.
 _COARSE_STAGES = ((2, 27), (6, 9), (13, 3))
 _COARSE_SEED_SIDE = 13
-_COARSE_SEED_SIGN = -1.0
+
+# The analytic seed's effective angle, veln - angle on both paths: the
+# convention of the sweeps' update and of the ray times.  The reference's
+# travel_finer_grid (and the JAX package) seeds the fine path with
+# veln + angle, the orientation mirrored, which this port does not follow.
+_SEED_SIGN = -1.0
 
 
 def coarse_stages(cfg: SolveConfig):
@@ -237,11 +250,6 @@ def coarse_stages(cfg: SolveConfig):
     if cfg.stage3_half is None:
         return _COARSE_STAGES
     return _COARSE_STAGES[:-1] + ((cfg.stage3_half, 3),)
-
-
-# Fine-path seed sign: effective seed angle veln + angle (travel_finer_grid
-# against travel's veln - angle, a quirk of the reference kept as is).
-_FINE_SEED_SIGN = 1.0
 
 
 def fine_stage_params(subgrid_size: int):
@@ -470,10 +478,10 @@ def solve_ttf(model: gridlib.Model, scx, scz, subgrid_size: int = 1,
     """
     s = int(subgrid_size)
     if s == 1:
-        base, seed_sign = model, _COARSE_SEED_SIGN
+        base = model
         stages, seed_side = coarse_stages(cfg), _COARSE_SEED_SIDE
     else:
-        base, seed_sign = gridlib.refine_model(model, s), _FINE_SEED_SIGN
+        base = gridlib.refine_model(model, s)
         stages, seed_side = fine_stage_params(s)
-    return _staged_solve(base, scx, scz, stages, seed_side, seed_sign, cfg,
+    return _staged_solve(base, scx, scz, stages, seed_side, _SEED_SIGN, cfg,
                          progress=progress, return_info=return_info)

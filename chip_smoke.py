@@ -475,7 +475,7 @@ def weld_patches(half, factor, dtype, device, model=None):
     patches = solver._slice_model(model, bz, bx, hz, hx, factor)
     tt, fixed = solver._analytic_seed(
         patches, model, isz, isx, (isz - bz) * factor, (isx - bx) * factor,
-        solver._COARSE_SEED_SIDE, solver._COARSE_SEED_SIGN)
+        solver._COARSE_SEED_SIDE, solver._SEED_SIGN)
     return patches, tt, fixed
 
 
@@ -937,6 +937,67 @@ def merge_worst(worst, errs):
         worst[key] = max(worst.get(key, 0.0), e)
 
 
+def near_vertical_segment(x_start, y1, s):
+    """A near-vertical segment one model cell long in fine-grid coordinates,
+    (x1, y1, x2, y1 + s): x2 the next float32 after x1, and x1 the first
+    float32 from ``x_start`` on at which x1 / s and x2 / s are one float32:
+    an integrator must difference such a segment's coordinates before it
+    divides them by s, or it sees dx = 0 and takes the segment at 0
+    degrees, as a horizontal one."""
+    x1, sd = np.float32(x_start), np.float32(s)
+    while True:
+        x2 = np.nextafter(x1, np.float32(np.inf))
+        if x1 / sd == x2 / sd:
+            return float(x1), float(y1), float(x2), float(y1 + s)
+        x1 = x2
+
+
+# the near-vertical case on the weld: element 12 of the bottom row
+# (x = 205, fine 1845), the segment a model cell above the bottom rows
+NEAR_VERTICAL = dict(x_start=1845.0, y1=3600.0, s=9, cross=13)
+TOL_NEAR_VERTICAL = 1e-5
+
+
+def check_near_vertical(dtype, device):
+    """The near-vertical segment (``NEAR_VERTICAL``) on the weld: the exact
+    integrator (K2's EXACT scorer) and K3's ray times against their plain
+    twins, bit for bit, and against the float64 twin within
+    TOL_NEAR_VERTICAL.  Returns the relative gap to the float64 twin."""
+    from alifmm_tpu_torch import rays
+    from alifmm_tpu_torch.ops import cuda_rays
+
+    nv = NEAR_VERTICAL
+    s, cross = nv["s"], nv["cross"]
+    seg = near_vertical_segment(nv["x_start"], nv["y1"], s)
+    times = {}
+    for dt in (dtype, torch.float64):
+        model = ray_model("weld", dt, device)
+        mat_flat = rays._material_flat(model)
+        pts = [torch.tensor([v], dtype=dt, device=device) for v in seg]
+        want = rays.segment_time(model, mat_flat, *pts, s, cross)
+        got = cuda_rays.segments(model, mat_flat, cuda_rays.EXACT, *pts, s,
+                                 cross)
+        rx = torch.stack([pts[0], pts[2]], 1)
+        ry = torch.stack([pts[1], pts[3]], 1)
+        lens = torch.tensor([2], device=device)
+        want_t = rays.ray_times_plain(model, mat_flat, rx, ry, lens, s, cross)
+        got_t = cuda_rays.ray_times(model, mat_flat, rx, ry, lens, s, cross)
+        torch.cuda.synchronize()
+        name = str(dt).replace("torch.", "")
+        log(f"  near-vertical segment {name}: exact integrator "
+            f"{float(got):.9e} (twin {float(want):.9e}), K3 "
+            f"{float(got_t):.9e} (twin {float(want_t):.9e})")
+        check(torch.equal(got, want) and torch.equal(got_t, want_t),
+              f"near-vertical segment {name}: a kernel differs from its twin")
+        times[dt] = float(got_t)
+    gap = abs(times[dtype] - times[torch.float64]) / times[torch.float64]
+    log(f"  near-vertical segment: {dtype} against float64 {gap:.3e} "
+        f"(tolerance {TOL_NEAR_VERTICAL:.0e})")
+    check(gap <= TOL_NEAR_VERTICAL, "near-vertical segment: float32 time "
+          "off the float64 one")
+    return gap
+
+
 def phase_rays_vs_plain(device):
     worst = {}
     for dtype in (torch.float64, torch.float32):
@@ -945,6 +1006,8 @@ def phase_rays_vs_plain(device):
                 name, dtype, device)))
         for knobs_name in MARCH_KNOBS:
             merge_worst(worst, check_march(knobs_name, dtype, device))
+        merge_worst(worst, dict(near_vertical=check_near_vertical(dtype,
+                                                                  device)))
     return worst
 
 
@@ -1598,7 +1661,7 @@ def stage_inputs(inputs, cfg=None):
             t0, fixed = solver._analytic_seed(
                 patches, model, isz, isx, (isz - nbz) * factor,
                 (isx - nbx) * factor, solver._COARSE_SEED_SIDE,
-                solver._COARSE_SEED_SIGN)
+                solver._SEED_SIGN)
         else:
             t0, fixed = solver._inject(tt, bz, bx, 3 * factor, patches.shape,
                                        nbz, nbx, factor, model.shape)
@@ -1809,7 +1872,7 @@ def phase_fine_rays_vs_plain(device):
 
 def fine_weld_patches(half, factor, dtype, device):
     """Per-source patches of the fine weld (four sources, on the top and
-    the bottom) with the fine path's analytic seed (side 40, sign +1):
+    the bottom) with the fine path's analytic seed (side 40):
     half 22 at 9x gives the first stage's 397 x 397, half 49 at 3x the
     second stage's 295 x 295."""
     from alifmm_tpu_torch import grid, solver, weld_data
@@ -1826,7 +1889,7 @@ def fine_weld_patches(half, factor, dtype, device):
     side = solver.fine_stage_params(weld_data.SUBGRID)[1]
     tt, fixed = solver._analytic_seed(
         patches, fine, isz, isx, (isz - bz) * factor, (isx - bx) * factor,
-        side, solver._FINE_SEED_SIGN)
+        side, solver._SEED_SIGN)
     return patches, tt, fixed
 
 
@@ -2063,7 +2126,7 @@ def fine_stage_inputs(inputs):
         if k == 0:
             t0, fixed = solver._analytic_seed(
                 patches, fine, isz, isx, (isz - nbz) * factor,
-                (isx - nbx) * factor, side, solver._FINE_SEED_SIGN)
+                (isx - nbx) * factor, side, solver._SEED_SIGN)
         else:
             t0, fixed = solver._inject(tt, bz, bx, 3 * factor, patches.shape,
                                        nbz, nbx, factor, fine.shape)
@@ -5783,6 +5846,7 @@ def main():
         dict(max_abs_err=ray_worst["relax_vertices"],
              max_abs_err_times=ray_worst["relax_times"],
              max_rel_err_times=ray_worst["relax_times_rel"],
+             near_vertical_f32_gap=ray_worst["near_vertical"],
              also_replaces="alifmm_tpu/rays.py:333",
              launches_fine_slice=fc["relax_times"],
              exact_materials=fine_rays["grid_tap_exact_materials"][

@@ -43,3 +43,23 @@ def references(jobs):
                   cfg.jax_persistent_cache_min_compile_time_secs))
     with pool:
         yield {name: pool.submit(fn) for name, fn in jobs.items()}
+
+
+def port_seed_sign(mp):
+    """Under the monkeypatch ``mp``, the JAX package's first patch stage
+    seeds with the port's effective angle (``alifmm_tpu_torch.solver.
+    _SEED_SIGN``: veln - angle, on both paths).  The JAX package seeds its
+    fine path with veln + angle, as the reference's travel_finer_grid does,
+    and the port departs from it there; a job that holds the port's fine
+    fields to JAX's calls this first."""
+    from alifmm_tpu import solver as jsolver
+    from alifmm_tpu_torch import solver as tsolver
+
+    stage_first = jsolver._stage_first
+
+    def first(model, scx, scz, half, factor, seed_side, seed_sign, cfg,
+              **kw):
+        return stage_first(model, scx, scz, half, factor, seed_side,
+                           tsolver._SEED_SIGN, cfg, **kw)
+
+    mp.setattr(jsolver, "_stage_first", first)

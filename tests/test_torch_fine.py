@@ -1,7 +1,9 @@
 """PyTorch port, the fine-grid path against the JAX package (float64, the
 port on the CPU): ``grid.refine_model``, ``solver.fine_stage_params`` and
-``solve_ttf(subgrid_size=3)`` (the first patch stage's seed sign +1
-included), ``trace_rays(mode="grid")`` on fields of the refined grid,
+``solve_ttf(subgrid_size=3)`` (its first patch stage seeded with veln -
+angle, where JAX seeds the fine path with veln + angle: JAX's side runs
+with the port's sign, ``_jax_side.port_seed_sign``),
+``trace_rays(mode="grid")`` on fields of the refined grid,
 ``exact_materials=True`` (the per-sample Christoffel solve) through every
 integrator, ``fast_step_scale`` with its uniform mask, the facade with
 ``ttf_mode="grid"``, and ``parallel/shard.solve_ttf_halo(subgrid_size=3)``
@@ -141,7 +143,8 @@ UPDATE_MASK = np.array([0, 0, 0, 1, 1, 1])
 
 def _jax_side_job(what):
     """JAX's side of the module's solves, the schedule cut as the fixture
-    cuts it, as numpy: "solve" the receivers' solve_ttf(subgrid_size=3)
+    cuts it and the fine path seeded with the port's sign
+    (``_jax_side.port_seed_sign``), as numpy: "solve" the receivers' solve_ttf(subgrid_size=3)
     (fields, passes, converged, the first patch stage's outputs);
     "facade rays" ALI_FMM(ttf_mode="grid").find_all_TTF_rays (the time
     matrix, ray lengths and paths); "facade update" its ``update`` on
@@ -152,6 +155,7 @@ def _jax_side_job(what):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(alifmm_tpu, "tqdm_disable", True, raising=False)
         mp.setattr(jsolver, "fine_stage_params", _cut(FINE_PARAMS[1]))
+        _jax_side.port_seed_sign(mp)
         if what.startswith("facade"):
             jf = _facades(w, SIMPSON_KNOBS if what == "facade rays"
                           else None)[0]
@@ -322,8 +326,11 @@ def test_solve_ttf_fine_matches_jax(world):
 
 def test_stage_first_fine_seed_sign(world):
     """The fine path's first stage (a 37 x 37 patch at 9x, analytic seed of
-    side 13 with the effective angle veln + angle) as both packages ran it
-    inside the solve."""
+    side 13) seeds with the effective angle veln - angle, as the model grid
+    does, where the JAX package (as the reference's travel_finer_grid)
+    takes veln + angle, the orientation mirrored: the stage as the port ran
+    it inside the solve against JAX's given the port's sign, and the points
+    it froze against the port's seed of either sign."""
     (wtt, wbz, wbx), (gtt, gbz, gbx) = (world["jax"]["solve"].result()[3],
                                         world["tfirst"])
     assert gtt.shape == wtt.shape == (3, 37, 37)
@@ -332,6 +339,21 @@ def test_stage_first_fine_seed_sign(world):
     known = wtt < 5e8
     np.testing.assert_array_equal(gtt < 5e8, known)
     _close(gtt[known], wtt[known], "first patch stage")
+
+    fine = tgrid.refine_model(world["tm"], S)
+    isz, isx = tsolver._source_cells(fine, torch.from_numpy(world["scx"]),
+                                     torch.from_numpy(world["scz"]))
+    ((half, factor),), side = tsolver.fine_stage_params(S)
+    hz, hx, bz, bx = tsolver._window(fine, isz, isx, half)
+    patches = tsolver._slice_model(fine, bz, bx, hz, hx, factor)
+    seeds = {sign: tsolver._analytic_seed(
+        patches, fine, isz, isx, (isz - bz) * factor, (isx - bx) * factor,
+        side, sign) for sign in (-1.0, 1.0)}
+    seed, fixed = (a.numpy() for a in seeds[-1.0])
+    assert tsolver._SEED_SIGN == -1.0 and fixed.sum() > 0
+    np.testing.assert_array_equal(gtt[fixed], seed[fixed])
+    mirrored = seeds[1.0][0].numpy()[fixed]
+    assert np.abs(mirrored - seed[fixed]).max() > 1e-3 * seed[fixed].max()
 
 
 @pytest.mark.parametrize("knobs", [SIMPSON_KNOBS, dict(max_steps=60)],

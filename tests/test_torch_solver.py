@@ -76,9 +76,12 @@ def _jax_solves(what):
     arrays, dnx = _crop_arrays(jm)
     jcrop = jgrid.make_model(*arrays, None, None, dnx, dtype=jnp.float64)
     x, z = (dnx * c for c in CROP_SOURCES)
-    want, winfo = jsolver.solve_ttf(
-        jcrop, x, z, 3, jsolver.SolveConfig(**CROP_BUDGET, sweep_block=1,
-                                            patch_block=1), return_info=True)
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_side.port_seed_sign(mp)
+        want, winfo = jsolver.solve_ttf(
+            jcrop, x, z, 3, jsolver.SolveConfig(**CROP_BUDGET, sweep_block=1,
+                                                patch_block=1),
+            return_info=True)
     inner, _, _ = jsolver._stage_first(
         jm, jnp.asarray(scx), jnp.asarray(scz), 1, 9, SEED_SIDE, -1.0,
         jsolver.SolveConfig(**INNER), use_pallas=False)
@@ -146,8 +149,9 @@ def test_patch_stages_per_source_convergence(problem):
 def test_unported_paths_raise(problem):
     """solve_ttf(subgrid_size=3), which raised NotImplementedError before
     the fine path was ported, against the JAX package's, with the uncut
-    fine schedule (patches of 127 x 127 at 9x and 97 x 97 at 3x, seed sign
-    +1) on a 13 x 11 crop of the problem with stiffness and table cells,
+    fine schedule (patches of 127 x 127 at 9x and 97 x 97 at 3x; JAX's
+    seeded with the port's sign, veln - angle, where its own fine path
+    takes veln + angle) on a 13 x 11 crop of the problem with stiffness and table cells,
     one pass a patch stage; and the first patch stage with the
     parallel-in-block sweeps (patch_inner = 2 over blocks of
     patch_block = 2 lines), which raised NotImplementedError before they
